@@ -1,0 +1,12 @@
+"""cvc_tpu_torch: the PyTorch/CUDA port of `cvc_tpu`, for one NVIDIA H100.
+
+It mirrors the JAX package's layout and names, keeps the JAX parameter
+layout (weights cross as the flat `a/b/c` npz), and replaces each Pallas
+kernel on its path with a CUDA kernel written for Hopper (`csrc/`), built
+with nvcc at first use. It imports nothing from `cvc_tpu`.
+
+This slice serves: `serving.Captioner` with beam search and greedy decoding.
+Entry points run on CUDA unless the caller passes device="cpu".
+"""
+
+__version__ = "0.1.0"

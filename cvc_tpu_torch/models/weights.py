@@ -1,0 +1,61 @@
+"""Parameter trees in and out of the port.
+
+A parameter tree is a nested dict with the JAX package's `a/b/c` paths;
+matrices are [in, out] and applied as `x @ W`, LSTM gates are in i, f, g, o
+order, so weights cross between the packages with no transposes. The file
+format is the flat `a/b/c` npz that `cvc_tpu.models.torch_import.
+save_params_npz` writes.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cvc_tpu_torch.ops.dispatch import resolve_device
+
+
+def params_from_numpy(tree, device="cuda") -> dict:
+    """Nested dict of numpy arrays (or tensors) -> the same tree of tensors
+    on `device`, values and dtypes unchanged."""
+    device = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, torch.Tensor):
+            return node.to(device)
+        return torch.from_numpy(np.array(node)).to(device)
+
+    return conv(tree)
+
+
+def save_params_npz(params, path: str) -> None:
+    """Flatten a parameter tree of tensors or arrays to an .npz with
+    'a/b/c' keys."""
+    flat = {}
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(f"{prefix}/{k}" if prefix else k, v)
+        elif isinstance(node, torch.Tensor):
+            flat[prefix] = node.detach().cpu().numpy()
+        else:
+            flat[prefix] = np.asarray(node)
+
+    walk("", params)
+    np.savez(path, **flat)
+
+
+def load_params_npz(path: str, device="cuda") -> dict:
+    """Inverse of save_params_npz: the nested tree of tensors on `device`."""
+    with np.load(path) as data:
+        tree: dict = {}
+        for key in data.files:
+            node = tree
+            parts = key.split("/")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = data[key]
+    return params_from_numpy(tree, device)

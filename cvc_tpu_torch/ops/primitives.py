@@ -1,0 +1,45 @@
+"""Core numeric ops in plain PyTorch (the port of `cvc_tpu/ops/primitives.py`).
+
+Conventions, as in the JAX package:
+  * LSTM gate order is (i, f, g, o) on the last axis of the [*, 4H] gates.
+  * Softmaxes accumulate in float32 even under bfloat16.
+  * Masks are float {0, 1}; masked softmax gives exactly 0 on masked slots,
+    and an all-zero row on a fully masked row.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def lstm_cell(gates: torch.Tensor, c: torch.Tensor):
+    """LSTM nonlinearity on precomputed gate preactivations, in the
+    inputs' type. gates [B, 4H] = x @ Wx + h @ Wh + b. Returns (h', c')."""
+    H = gates.shape[-1] // 4
+    i = torch.sigmoid(gates[..., 0 * H:1 * H])
+    f = torch.sigmoid(gates[..., 1 * H:2 * H])
+    g = torch.tanh(gates[..., 2 * H:3 * H])
+    o = torch.sigmoid(gates[..., 3 * H:4 * H])
+    c_new = f * c + i * g
+    h_new = o * torch.tanh(c_new)
+    return h_new, c_new
+
+
+def additive_attention_scores(keys: torch.Tensor, query: torch.Tensor,
+                              w: torch.Tensor) -> torch.Tensor:
+    """keys [B,S,A], query [B,A], w [A] -> logits [B,S] = tanh(keys+q) . w"""
+    e = torch.tanh(keys + query[:, None, :])
+    return torch.einsum("bsa,a->bs", e, w)
+
+
+def masked_softmax(logits: torch.Tensor, mask: torch.Tensor,
+                   dim: int = -1) -> torch.Tensor:
+    """Softmax over `dim` in float32 with masked entries exactly 0; a fully
+    masked row comes out all zero rather than NaN."""
+    logits = logits.float()
+    live = mask > 0
+    masked = torch.where(live, logits, torch.finfo(torch.float32).min)
+    m = masked.amax(dim=dim, keepdim=True)
+    ex = torch.exp(masked - m) * live
+    denom = ex.sum(dim=dim, keepdim=True)
+    return ex / torch.clamp(denom, min=1e-9)

@@ -1,0 +1,50 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+its entry points run on CUDA unless asked for the CPU."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, pkgutil, sys
+import cvc_tpu_torch
+names = ["chip_smoke"]
+for m in pkgutil.walk_packages(cvc_tpu_torch.__path__, "cvc_tpu_torch."):
+    names.append(m.name)
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "cvc_tpu" or m.startswith("cvc_tpu."))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_port_imports_no_jax_and_no_cvc_tpu():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert int(r.stdout.split()[0]) >= 15     # every module was imported
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from cvc_tpu_torch.config import EvalConfig, ModelConfig
+    from cvc_tpu_torch.data.vocab import Vocabulary
+    from cvc_tpu_torch.models.decoding import make_decoder
+    from cvc_tpu_torch.models.weights import params_from_numpy
+    from cvc_tpu_torch.serving import Captioner
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Captioner.build({}, ModelConfig(), Vocabulary(["a"]))
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_decoder(ModelConfig(), EvalConfig())
+    with pytest.raises(RuntimeError, match="cuda"):
+        params_from_numpy({})
