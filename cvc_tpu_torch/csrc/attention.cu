@@ -24,16 +24,19 @@ namespace {
 using namespace cvc;
 
 template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kAttnThreads)
 additive_attention_kernel(const T* __restrict__ keys, const T* __restrict__ q,
                           const T* __restrict__ w, const T* __restrict__ v,
                           const float* __restrict__ mask, T* __restrict__ ctx,
                           float* __restrict__ alpha, int S, int A, int H) {
-  extern __shared__ float smem[];
-  float* q_s = smem;          // [A]
-  float* w_s = q_s + A;       // [A]
-  float* m_s = w_s + A;       // [S]
-  float* sc_s = m_s + S;      // [S]
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;                                    // [A]
+  float* w_s = q_s + A;                                 // [A]
+  float* m_s = w_s + A;                                 // [S]
+  float* sc_s = m_s + S;                                // [S]
+  int* live = reinterpret_cast<int*>(sc_s + S);         // [S]
+  int* n_live = live + S;                               // [1]
+  float* part = reinterpret_cast<float*>(n_live + 1);   // context partial sums
   const int b = blockIdx.x;
   for (int a = threadIdx.x; a < A; a += blockDim.x) {
     q_s[a] = to_f(q[static_cast<long long>(b) * A + a]);
@@ -41,19 +44,23 @@ additive_attention_kernel(const T* __restrict__ keys, const T* __restrict__ q,
   }
   for (int s = threadIdx.x; s < S; s += blockDim.x) m_s[s] = mask[static_cast<long long>(b) * S + s];
   __syncthreads();
-  attention_scores<T, VEC, true>(keys + static_cast<long long>(b) * S * A, m_s, q_s, w_s,
-                                 sc_s, 1, S, A);
+  list_live_slots(m_s, S, live, n_live);
+  __syncthreads();
+  attention_scores<T, VEC, true>(keys + static_cast<long long>(b) * S * A, live, *n_live,
+                                 q_s, w_s, sc_s, 1, S, A);
   __syncthreads();
   masked_softmax_rows(sc_s, m_s, alpha + static_cast<long long>(b) * S, 1, S);
   __syncthreads();
-  attention_context<T, VEC, true>(v + static_cast<long long>(b) * S * H, m_s, sc_s,
-                                  ctx + static_cast<long long>(b) * H, 1, S, H);
+  attention_context<T, VEC, true>(v + static_cast<long long>(b) * S * H, live, *n_live, sc_s,
+                                  ctx + static_cast<long long>(b) * H, part, 1, S, H);
 }
 
 template <typename T, int VEC>
 int launch(const void* keys, const void* q, const void* w, const void* v, const void* mask,
            void* ctx, void* alpha, int B, int S, int A, int H, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * static_cast<size_t>(A) + 2 * static_cast<size_t>(S));
+  const size_t smem = sizeof(float) * (2 * static_cast<size_t>(A) + 3 * static_cast<size_t>(S) + 1 +
+                                       context_partial_floats(1, H, VEC, kAttnThreads));
+  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = additive_attention_kernel<T, VEC>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -61,7 +68,7 @@ int launch(const void* keys, const void* q, const void* w, const void* v, const 
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   if (B == 0) return 0;
-  kernel<<<B, kThreads, smem, stream>>>(
+  kernel<<<B, kAttnThreads, smem, stream>>>(
       static_cast<const T*>(keys), static_cast<const T*>(q), static_cast<const T*>(w),
       static_cast<const T*>(v), static_cast<const float*>(mask), static_cast<T*>(ctx),
       static_cast<float*>(alpha), S, A, H);

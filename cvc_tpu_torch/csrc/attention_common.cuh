@@ -2,37 +2,64 @@
 // kernel (attention.cu) and the beam decoder core (decoder_step.cu).
 //
 // One thread block owns one image b and K query rows (K = 1 for the plain
-// attention, the K beams for the decoder core). The block streams each
-// region row keys[b, s, :] and v[b, s, :] from device memory once and uses
-// it for all K queries; only scores [K, S] and a few [K, A] vectors live in
-// shared memory, so S is bounded by shared memory at ~4 K * S bytes, not by
-// the [S, A] tiles. Rows whose mask is 0 are never read: their weight is
-// exactly 0 in the softmax.
+// attention, the K beams for the decoder core). The block first lists the
+// image's live region slots (mask > 0) in shared memory, then streams each
+// live row keys[b, s, :] and v[b, s, :] from device memory once and uses it
+// for all K queries. Padding slots are never read: their weight is exactly 0.
+// Only scores [K, S] and a few [K, A] and [K, H] vectors live in shared
+// memory, so S is bounded by shared memory at ~4 (K + 2) S bytes, not by
+// [S, A] tiles.
 #pragma once
 
 #include "common.cuh"
 
 namespace cvc {
 
+constexpr int kAttnThreads = 512;      // threads per attention block
 constexpr float kMaskedScore = -1e30f;
 
-// scores[k * S + s] = sum_a e * w[a] with e = rnd(tanh(rnd(keys[s, a] + q[k * A + a]))),
-// and kMaskedScore where mask[s] <= 0. ROUND_PROD rounds each e * w to T
-// before the float32 sum (cvc_tpu/ops/pallas/attention.py sums e * w formed
-// in the working type; decoder_step.py multiplies in float32).
-// One warp per region row; q, w, mask and scores are in shared memory.
+// tanh of the scores. bf16: the hardware tanh (tanh.approx.f32, relative
+// error below 2^-10.9), whose result is then rounded to bf16 (steps of
+// 2^-8), so it moves a rounded e by at most one step and only near a
+// rounding boundary. float32: the accurate tanhf.
+template <typename T> __device__ __forceinline__ float score_tanh(float x);
+template <> __device__ __forceinline__ float score_tanh<float>(float x) { return tanhf(x); }
+template <> __device__ __forceinline__ float score_tanh<__nv_bfloat16>(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// live[0..*n_live) = the slots s with mask[s] > 0, in increasing order.
+// Warp 0 compacts 32 slots per ballot.
+__device__ inline void list_live_slots(const float* mask, int S, int* live, int* n_live) {
+  if ((threadIdx.x >> 5) != 0) return;
+  const int lane = threadIdx.x & 31;
+  int base = 0;
+  for (int s0 = 0; s0 < S; s0 += 32) {
+    const int s = s0 + lane;
+    const bool on = s < S && mask[s] > 0.f;
+    const unsigned bits = __ballot_sync(0xffffffffu, on);
+    if (on) live[base + __popc(bits & ((1u << lane) - 1u))] = s;
+    base += __popc(bits);
+  }
+  if (lane == 0) *n_live = base;
+}
+
+// scores[k * S + s] = sum_a e * w[a] for each live slot s, with
+// e = rnd(score_tanh(rnd(keys[s, a] + q[k * A + a]))). ROUND_PROD rounds each
+// e * w to T before the float32 sum (cvc_tpu/ops/pallas/attention.py sums
+// e * w formed in the working type; decoder_step.py multiplies in float32).
+// One warp per live row; q, w and scores are in shared memory.
 template <typename T, int VEC, bool ROUND_PROD>
-__device__ void attention_scores(const T* __restrict__ keys, const float* mask,
+__device__ void attention_scores(const T* __restrict__ keys, const int* live, int n_live,
                                  const float* q, const float* w, float* scores,
                                  int K, int S, int A) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
-  for (int s = warp; s < S; s += nwarps) {
-    if (!(mask[s] > 0.f)) {
-      if (lane < K) scores[lane * S + s] = kMaskedScore;
-      continue;
-    }
+  for (int i = warp; i < n_live; i += nwarps) {
+    const int s = live[i];
     float acc[kMaxBeams];
 #pragma unroll
     for (int k = 0; k < kMaxBeams; ++k) acc[k] = 0.f;
@@ -47,7 +74,7 @@ __device__ void attention_scores(const T* __restrict__ keys, const float* mask,
 #pragma unroll
         for (int k = 0; k < kMaxBeams; ++k) {
           if (k < K) {
-            const float e = rnd<T>(tanhf(rnd<T>(kf + q[k * A + a0 + v])));
+            const float e = rnd<T>(score_tanh<T>(rnd<T>(kf + q[k * A + a0 + v])));
             acc[k] += ROUND_PROD ? rnd<T>(e * wv) : e * wv;
           }
         }
@@ -65,8 +92,8 @@ __device__ void attention_scores(const T* __restrict__ keys, const float* mask,
 
 // In place over scores [K, S]: masked softmax in float32, as the Pallas
 // kernels do it (max over live slots, exp, sum clamped to 1e-9, divide).
-// A row with no live slot comes out all zero. alpha_out gets the same
-// [K, S] values. One warp per query row.
+// Masked slots, and every slot of a row with none live, come out 0.
+// alpha_out gets the same [K, S] values. One warp per query row.
 __device__ inline void masked_softmax_rows(float* scores, const float* mask,
                                            float* __restrict__ alpha_out, int K, int S) {
   const int lane = threadIdx.x & 31;
@@ -75,7 +102,8 @@ __device__ inline void masked_softmax_rows(float* scores, const float* mask,
   for (int k = warp; k < K; k += nwarps) {
     float* row = scores + k * S;
     float m = kMaskedScore;
-    for (int s = lane; s < S; s += 32) m = fmaxf(m, row[s]);
+    for (int s = lane; s < S; s += 32)
+      if (mask[s] > 0.f) m = fmaxf(m, row[s]);
     m = warp_max(m);
     float sum = 0.f;
     for (int s = lane; s < S; s += 32) sum += mask[s] > 0.f ? expf(row[s] - m) : 0.f;
@@ -88,41 +116,76 @@ __device__ inline void masked_softmax_rows(float* scores, const float* mask,
   }
 }
 
-// ctx[k * H + h] = sum_s rnd(alpha[k * S + s]) * v[s, h], summed in float32
-// over the live slots (ROUND_PROD rounds each product to T first, as the
-// attention kernel's multiply-reduce does). Each thread owns VEC columns.
+// Shared-memory floats attention_context needs for its partial sums.
+__host__ __device__ inline int context_partial_floats(int K, int H, int VEC, int threads) {
+  const int cols = H / VEC;
+  const int groups = cols >= threads ? 1 : threads / cols;
+  return (groups - 1) * K * H;
+}
+
+// ctx[k * H + h] = sum over live s of rnd(alpha[k * S + s]) * v[s, h], summed
+// in float32 (ROUND_PROD rounds each product to T first, as the attention
+// kernel's multiply-reduce does). Each thread owns VEC columns; when the
+// columns need fewer threads than the block has, G groups of threads split
+// the live rows and group 0 adds the others' partial sums (kept in `part`)
+// in group order, so the result does not depend on timing.
 template <typename T, int VEC, bool ROUND_PROD>
-__device__ void attention_context(const T* __restrict__ v, const float* mask,
-                                  const float* alpha, T* __restrict__ ctx,
+__device__ void attention_context(const T* __restrict__ v, const int* live, int n_live,
+                                  const float* alpha, T* __restrict__ ctx, float* part,
                                   int K, int S, int H) {
-  for (int h0 = threadIdx.x * VEC; h0 < H; h0 += blockDim.x * VEC) {
+  const int cols = H / VEC;
+  const int stride = cols < static_cast<int>(blockDim.x) ? cols : blockDim.x;
+  const int G = blockDim.x / stride;
+  const int g = threadIdx.x / stride;
+  for (int c = threadIdx.x % stride; c < cols; c += stride) {
+    const int h0 = c * VEC;
     float acc[kMaxBeams][VEC];
 #pragma unroll
     for (int k = 0; k < kMaxBeams; ++k)
 #pragma unroll
       for (int i = 0; i < VEC; ++i) acc[k][i] = 0.f;
-    for (int s = 0; s < S; ++s) {
-      if (!(mask[s] > 0.f)) continue;
-      alignas(16) T vv[VEC];
-      load_vec<T, VEC>(vv, v + static_cast<long long>(s) * H + h0);
+    if (g < G) {
+#pragma unroll 4
+      for (int i = g; i < n_live; i += G) {
+        const int s = live[i];
+        alignas(16) T vv[VEC];
+        load_vec<T, VEC>(vv, v + static_cast<long long>(s) * H + h0);
 #pragma unroll
-      for (int k = 0; k < kMaxBeams; ++k) {
-        if (k < K) {
-          const float a = rnd<T>(alpha[k * S + s]);
+        for (int k = 0; k < kMaxBeams; ++k) {
+          if (k < K) {
+            const float a = rnd<T>(alpha[k * S + s]);
 #pragma unroll
-          for (int i = 0; i < VEC; ++i) {
-            const float p = a * to_f(vv[i]);
-            acc[k][i] += ROUND_PROD ? rnd<T>(p) : p;
+            for (int j = 0; j < VEC; ++j) {
+              const float p = a * to_f(vv[j]);
+              acc[k][j] += ROUND_PROD ? rnd<T>(p) : p;
+            }
           }
         }
       }
+    }
+    if (G > 1) {  // block-uniform; then every thread has exactly one c
+      if (g > 0 && g < G) {
+#pragma unroll
+        for (int k = 0; k < kMaxBeams; ++k)
+          if (k < K)
+#pragma unroll
+            for (int j = 0; j < VEC; ++j) part[((g - 1) * K + k) * H + h0 + j] = acc[k][j];
+      }
+      __syncthreads();
+      if (g != 0) continue;
+      for (int gg = 1; gg < G; ++gg)
+#pragma unroll
+        for (int k = 0; k < kMaxBeams; ++k)
+          if (k < K)
+#pragma unroll
+            for (int j = 0; j < VEC; ++j) acc[k][j] += part[((gg - 1) * K + k) * H + h0 + j];
     }
 #pragma unroll
     for (int k = 0; k < kMaxBeams; ++k) {
       if (k < K) {
         alignas(16) T out[VEC];
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) out[i] = from_f<T>(acc[k][i]);
+        for (int j = 0; j < VEC; ++j) out[j] = from_f<T>(acc[k][j]);
         store_vec<T, VEC>(ctx + static_cast<long long>(k) * H + h0, out);
       }
     }

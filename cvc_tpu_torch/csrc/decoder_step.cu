@@ -35,19 +35,22 @@ namespace {
 using namespace cvc;
 
 template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kAttnThreads)
 beam_decoder_core_kernel(const T* __restrict__ gates1, const T* __restrict__ c_att,
                          const T* __restrict__ keys, const T* __restrict__ v_enc,
                          const float* __restrict__ mask, const T* __restrict__ att_wh,
                          const T* __restrict__ att_b, const T* __restrict__ att_w,
                          T* __restrict__ h_out, T* __restrict__ c_out, T* __restrict__ ctx,
                          float* __restrict__ alpha, int K, int S, int A, int H) {
-  extern __shared__ float smem[];
-  float* h_s = smem;            // [K, H]
-  float* q_s = h_s + K * H;     // [K, A]
-  float* w_s = q_s + K * A;     // [A]
-  float* m_s = w_s + A;         // [S]
-  float* sc_s = m_s + S;        // [K, S]
+  extern __shared__ __align__(16) float smem[];
+  float* h_s = smem;                                    // [K, H]
+  float* q_s = h_s + K * H;                             // [K, A]
+  float* w_s = q_s + K * A;                             // [A]
+  float* m_s = w_s + A;                                 // [S]
+  float* sc_s = m_s + S;                                // [K, S]
+  int* live = reinterpret_cast<int*>(sc_s + K * S);     // [S]
+  int* n_live = live + S;                               // [1]
+  float* part = reinterpret_cast<float*>(n_live + 1);   // context partial sums
   const int b = blockIdx.x;
   const long long row0 = static_cast<long long>(b) * K;
 
@@ -70,17 +73,39 @@ beam_decoder_core_kernel(const T* __restrict__ gates1, const T* __restrict__ c_a
   for (int a = threadIdx.x; a < A; a += blockDim.x) w_s[a] = to_f(att_w[a]);
   for (int s = threadIdx.x; s < S; s += blockDim.x) m_s[s] = mask[static_cast<long long>(b) * S + s];
   __syncthreads();
+  list_live_slots(m_s, S, live, n_live);
 
   // 2. attention query for the K beams
   for (int a = threadIdx.x; a < A; a += blockDim.x) {
     float acc[kMaxBeams];
 #pragma unroll
     for (int k = 0; k < kMaxBeams; ++k) acc[k] = 0.f;
-    for (int j = 0; j < H; ++j) {
+    int j = 0;
+    if (H % 4 == 0) {  // h rows read as float4: 16-byte aligned
+#pragma unroll 2
+      for (; j < H; j += 4) {
+        const T* col = att_wh + static_cast<long long>(j) * A + a;
+        const float w0 = to_f(col[0]);
+        const float w1 = to_f(col[A]);
+        const float w2 = to_f(col[2 * A]);
+        const float w3 = to_f(col[3 * A]);
+#pragma unroll
+        for (int k = 0; k < kMaxBeams; ++k) {
+          if (k < K) {
+            const float4 hv = *reinterpret_cast<const float4*>(h_s + k * H + j);
+            acc[k] = fmaf(hv.x, w0, acc[k]);
+            acc[k] = fmaf(hv.y, w1, acc[k]);
+            acc[k] = fmaf(hv.z, w2, acc[k]);
+            acc[k] = fmaf(hv.w, w3, acc[k]);
+          }
+        }
+      }
+    }
+    for (; j < H; ++j) {
       const float wv = to_f(att_wh[static_cast<long long>(j) * A + a]);
 #pragma unroll
       for (int k = 0; k < kMaxBeams; ++k)
-        if (k < K) acc[k] += h_s[k * H + j] * wv;
+        if (k < K) acc[k] = fmaf(h_s[k * H + j], wv, acc[k]);
     }
     const float bias = to_f(att_b[a]);
 #pragma unroll
@@ -90,13 +115,13 @@ beam_decoder_core_kernel(const T* __restrict__ gates1, const T* __restrict__ c_a
   __syncthreads();
 
   // 3-5. scores, softmax, context
-  attention_scores<T, VEC, false>(keys + static_cast<long long>(b) * S * A, m_s, q_s, w_s,
-                                  sc_s, K, S, A);
+  attention_scores<T, VEC, false>(keys + static_cast<long long>(b) * S * A, live, *n_live,
+                                  q_s, w_s, sc_s, K, S, A);
   __syncthreads();
   masked_softmax_rows(sc_s, m_s, alpha + row0 * S, K, S);
   __syncthreads();
-  attention_context<T, VEC, false>(v_enc + static_cast<long long>(b) * S * H, m_s, sc_s,
-                                   ctx + row0 * H, K, S, H);
+  attention_context<T, VEC, false>(v_enc + static_cast<long long>(b) * S * H, live, *n_live,
+                                   sc_s, ctx + row0 * H, part, K, S, H);
 }
 
 template <typename T, int VEC>
@@ -104,7 +129,9 @@ int launch(const void* gates1, const void* c_att, const void* keys, const void* 
            const void* mask, const void* att_wh, const void* att_b, const void* att_w,
            void* h_out, void* c_out, void* ctx, void* alpha, int B, int K, int S, int A,
            int H, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (static_cast<size_t>(K) * (H + A + S) + A + S);
+  const size_t smem = sizeof(float) * (static_cast<size_t>(K) * (H + A + S) + A + 2 * S + 1 +
+                                       context_partial_floats(K, H, VEC, kAttnThreads));
+  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = beam_decoder_core_kernel<T, VEC>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -112,7 +139,7 @@ int launch(const void* gates1, const void* c_att, const void* keys, const void* 
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   if (B == 0) return 0;
-  kernel<<<B, kThreads, smem, stream>>>(
+  kernel<<<B, kAttnThreads, smem, stream>>>(
       static_cast<const T*>(gates1), static_cast<const T*>(c_att), static_cast<const T*>(keys),
       static_cast<const T*>(v_enc), static_cast<const float*>(mask),
       static_cast<const T*>(att_wh), static_cast<const T*>(att_b), static_cast<const T*>(att_w),

@@ -80,10 +80,6 @@ def fused_beam_decoder_core(gates1, c_att, keys, v_enc, region_mask,
                          + ", ".join(f"{tuple(a.shape)}" for a in args))
     if not 1 <= K <= MAX_BEAMS:
         raise ValueError(f"{name}: K={K} beams, the kernel takes 1..{MAX_BEAMS}")
-    smem = 4 * (K * (H + A + S) + A + S)
-    if smem > 227 * 1024:
-        raise ValueError(f"{name}: K={K}, H={H}, A={A}, S={S} need {smem} "
-                         f"bytes of shared memory, more than a block has")
     h = torch.empty_like(c_att)
     c = torch.empty_like(c_att)
     ctx = torch.empty((B, K, H), dtype=v_enc.dtype, device=dev)
