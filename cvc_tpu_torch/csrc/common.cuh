@@ -69,6 +69,6 @@ __device__ __forceinline__ void store_vec(T* __restrict__ dst, const T (&src)[VE
   }
 }
 
-inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+__host__ __device__ inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 }  // namespace cvc

@@ -14,12 +14,14 @@
 // row from device memory once and applies it to all K beams (the TPU
 // kernel's reason to exist: the beams never repeat the region tensors K
 // times). Inside the block:
-//   1. gating in float32; the K new h rows, rounded to the working type, go
-//      to shared memory ([K, H] floats); the live slots are listed;
-//   2. q = h @ att_wh + att_b with a plain FMA loop, one column per thread,
-//      four att_wh rows per iteration so that loads overlap, float32 sums,
-//      rounded to the working type ([K, A] in shared memory); att_wh
-//      (1 MB in bf16) is read by every block and stays in L2;
+//   1. gating in float32 with 16-byte accesses; the K new h rows, rounded
+//      to the working type, go to shared memory ([K, H] floats); the live
+//      slots are listed;
+//   2. q = h @ att_wh + att_b with an FMA loop on the CUDA cores, float32
+//      sums, rounded to the working type ([K, A] in shared memory). Each
+//      lane reads 16 bytes of a row and a warp eight rows at once, so many
+//      loads are in flight; att_wh (1 MB in bf16) is read by every block
+//      and stays in L2;
 //   3. scores: one warp per live region row, tanh(keys + q) never stored;
 //   4. masked softmax per beam row (float32, fully masked image -> 0);
 //   5. ctx = alpha @ v_enc[b]: each thread owns VEC columns and all K
@@ -33,6 +35,114 @@
 namespace {
 
 using namespace cvc;
+
+// Step 1, att-LSTM gating for the K beams of image row0 / K: float32
+// inside, h and c out in T, and h (rounded to T) into h_s [K, H]. Each
+// thread takes V consecutive units of one beam (one 16-byte access per
+// gate block when V * sizeof(T) == 16).
+template <typename T, int V>
+__device__ void gate_beams(const T* __restrict__ gates1, const T* __restrict__ c_att,
+                           T* __restrict__ h_out, T* __restrict__ c_out, float* h_s,
+                           long long row0, int K, int H) {
+  const int groups = H / V;
+  for (int idx = threadIdx.x; idx < K * groups; idx += blockDim.x) {
+    const int k = idx / groups;
+    const int j = (idx - k * groups) * V;
+    const T* g = gates1 + (row0 + k) * 4 * H + j;
+    const long long o = (row0 + k) * H + j;
+    alignas(16) T gi[V], gf[V], gg[V], go[V], cc[V], ho[V], co[V];
+    load_vec<T, V>(gi, g);
+    load_vec<T, V>(gf, g + H);
+    load_vec<T, V>(gg, g + 2 * H);
+    load_vec<T, V>(go, g + 3 * H);
+    load_vec<T, V>(cc, c_att + o);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const float i_ = sigmoid_f(to_f(gi[v]));
+      const float f_ = sigmoid_f(to_f(gf[v]));
+      const float g_ = tanhf(to_f(gg[v]));
+      const float o_ = sigmoid_f(to_f(go[v]));
+      const float c_new = f_ * to_f(cc[v]) + i_ * g_;
+      const float h_new = o_ * tanhf(c_new);
+      ho[v] = from_f<T>(h_new);
+      co[v] = from_f<T>(c_new);
+      h_s[k * H + j + v] = rnd<T>(h_new);
+    }
+    store_vec<T, V>(h_out + o, ho);
+    store_vec<T, V>(c_out + o, co);
+  }
+}
+
+// Step 2, q[k, a] = rnd(sum_j h[k, j] * att_wh[j, a] + att_b[a]) with
+// float32 sums, into q_s [K, A]. Each warp owns a block of 4 * QV columns:
+// lane = 4 * jg + cg reads QV consecutive columns of rows j = jg, jg + 8, ...
+// with one 16-byte load, so a warp keeps eight rows' loads in flight; the
+// eight row groups are summed with shuffles at the end. Needs A % (4 * QV)
+// == 0 and a 16-byte aligned att_wh.
+template <typename T>
+__device__ void query_product(const T* __restrict__ att_wh, const T* __restrict__ att_b,
+                              const float* h_s, float* q_s, int K, int A, int H) {
+  constexpr int QV = 16 / sizeof(T);
+  constexpr int CW = 4 * QV;
+  const int lane = threadIdx.x & 31;
+  const int jg = lane >> 2;
+  const int cg = lane & 3;
+  for (int cb = threadIdx.x >> 5; cb * CW < A; cb += blockDim.x >> 5) {
+    const int a0 = cb * CW + cg * QV;
+    float acc[kMaxBeams][QV];
+#pragma unroll
+    for (int k = 0; k < kMaxBeams; ++k)
+#pragma unroll
+      for (int v = 0; v < QV; ++v) acc[k][v] = 0.f;
+#pragma unroll 4
+    for (int j = jg; j < H; j += 8) {
+      alignas(16) T w[QV];
+      load_vec<T, QV>(w, att_wh + static_cast<long long>(j) * A + a0);
+#pragma unroll
+      for (int k = 0; k < kMaxBeams; ++k) {
+        if (k < K) {
+          const float hv = h_s[k * H + j];
+#pragma unroll
+          for (int v = 0; v < QV; ++v) acc[k][v] = fmaf(hv, to_f(w[v]), acc[k][v]);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kMaxBeams; ++k) {
+      if (k < K) {
+#pragma unroll
+        for (int v = 0; v < QV; ++v) {
+          float t = acc[k][v];
+          t += __shfl_xor_sync(0xffffffffu, t, 4);
+          t += __shfl_xor_sync(0xffffffffu, t, 8);
+          t += __shfl_xor_sync(0xffffffffu, t, 16);
+          if (jg == 0) q_s[k * A + a0 + v] = rnd<T>(t + to_f(att_b[a0 + v]));
+        }
+      }
+    }
+  }
+}
+
+// Step 2 for any A: one column per thread, a row at a time.
+template <typename T>
+__device__ void query_product_any(const T* __restrict__ att_wh, const T* __restrict__ att_b,
+                                  const float* h_s, float* q_s, int K, int A, int H) {
+  for (int a = threadIdx.x; a < A; a += blockDim.x) {
+    float acc[kMaxBeams];
+#pragma unroll
+    for (int k = 0; k < kMaxBeams; ++k) acc[k] = 0.f;
+    for (int j = 0; j < H; ++j) {
+      const float wv = to_f(att_wh[static_cast<long long>(j) * A + a]);
+#pragma unroll
+      for (int k = 0; k < kMaxBeams; ++k)
+        if (k < K) acc[k] = fmaf(h_s[k * H + j], wv, acc[k]);
+    }
+    const float bias = to_f(att_b[a]);
+#pragma unroll
+    for (int k = 0; k < kMaxBeams; ++k)
+      if (k < K) q_s[k * A + a] = rnd<T>(acc[k] + bias);
+  }
+}
 
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kAttnThreads)
@@ -54,64 +164,18 @@ beam_decoder_core_kernel(const T* __restrict__ gates1, const T* __restrict__ c_a
   const int b = blockIdx.x;
   const long long row0 = static_cast<long long>(b) * K;
 
-  // 1. att-LSTM gating
-  for (int idx = threadIdx.x; idx < K * H; idx += blockDim.x) {
-    const int k = idx / H;
-    const int j = idx - k * H;
-    const T* g = gates1 + (row0 + k) * 4 * H;
-    const float i_ = sigmoid_f(to_f(g[j]));
-    const float f_ = sigmoid_f(to_f(g[H + j]));
-    const float g_ = tanhf(to_f(g[2 * H + j]));
-    const float o_ = sigmoid_f(to_f(g[3 * H + j]));
-    const long long o = (row0 + k) * H + j;
-    const float c_new = f_ * to_f(c_att[o]) + i_ * g_;
-    const float h_new = o_ * tanhf(c_new);
-    h_out[o] = from_f<T>(h_new);
-    c_out[o] = from_f<T>(c_new);
-    h_s[idx] = rnd<T>(h_new);
-  }
+  // 1. att-LSTM gating, then the list of live slots
+  gate_beams<T, VEC>(gates1, c_att, h_out, c_out, h_s, row0, K, H);
   for (int a = threadIdx.x; a < A; a += blockDim.x) w_s[a] = to_f(att_w[a]);
   for (int s = threadIdx.x; s < S; s += blockDim.x) m_s[s] = mask[static_cast<long long>(b) * S + s];
   __syncthreads();
   list_live_slots(m_s, S, live, n_live);
 
   // 2. attention query for the K beams
-  for (int a = threadIdx.x; a < A; a += blockDim.x) {
-    float acc[kMaxBeams];
-#pragma unroll
-    for (int k = 0; k < kMaxBeams; ++k) acc[k] = 0.f;
-    int j = 0;
-    if (H % 4 == 0) {  // h rows read as float4: 16-byte aligned
-#pragma unroll 2
-      for (; j < H; j += 4) {
-        const T* col = att_wh + static_cast<long long>(j) * A + a;
-        const float w0 = to_f(col[0]);
-        const float w1 = to_f(col[A]);
-        const float w2 = to_f(col[2 * A]);
-        const float w3 = to_f(col[3 * A]);
-#pragma unroll
-        for (int k = 0; k < kMaxBeams; ++k) {
-          if (k < K) {
-            const float4 hv = *reinterpret_cast<const float4*>(h_s + k * H + j);
-            acc[k] = fmaf(hv.x, w0, acc[k]);
-            acc[k] = fmaf(hv.y, w1, acc[k]);
-            acc[k] = fmaf(hv.z, w2, acc[k]);
-            acc[k] = fmaf(hv.w, w3, acc[k]);
-          }
-        }
-      }
-    }
-    for (; j < H; ++j) {
-      const float wv = to_f(att_wh[static_cast<long long>(j) * A + a]);
-#pragma unroll
-      for (int k = 0; k < kMaxBeams; ++k)
-        if (k < K) acc[k] = fmaf(h_s[k * H + j], wv, acc[k]);
-    }
-    const float bias = to_f(att_b[a]);
-#pragma unroll
-    for (int k = 0; k < kMaxBeams; ++k)
-      if (k < K) q_s[k * A + a] = rnd<T>(acc[k] + bias);
-  }
+  if (A % (4 * (16 / static_cast<int>(sizeof(T)))) == 0 && aligned16(att_wh))
+    query_product<T>(att_wh, att_b, h_s, q_s, K, A, H);
+  else
+    query_product_any<T>(att_wh, att_b, h_s, q_s, K, A, H);
   __syncthreads();
 
   // 3-5. scores, softmax, context
@@ -158,7 +222,8 @@ extern "C" int cvc_beam_decoder_core(const void* gates1, const void* c_att, cons
   cudaGetLastError();
   if (K < 1 || K > kMaxBeams) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool al = aligned16(keys) && aligned16(v_enc) && aligned16(ctx);
+  const bool al = aligned16(keys) && aligned16(v_enc) && aligned16(ctx) && aligned16(gates1) &&
+                  aligned16(c_att) && aligned16(h_out) && aligned16(c_out);
   int rc;
   if (dtype == kF32) {
     rc = (A % 4 == 0 && H % 4 == 0 && al)

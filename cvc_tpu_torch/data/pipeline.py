@@ -26,20 +26,43 @@ def pad_regions(feats: np.ndarray, boxes: np.ndarray, classes: np.ndarray,
     Accepts [N, D] (image) or [F, N, D] (video) features; returns flattened
     [S, D], [S, 5], [S], [S] with S = num_frames * num_regions.
     """
+    S = num_frames * num_regions
+    out = (np.empty((S, feat_dim), np.float32), np.empty((S, 5), np.float32),
+           np.empty((S,), np.int32), np.empty((S,), np.float32))
+    pad_regions_into(*out, feats, boxes, classes, num_frames, num_regions,
+                     feat_dim)
+    return out
+
+
+def pad_regions_into(out_f: np.ndarray, out_g: np.ndarray, out_c: np.ndarray,
+                     out_m: np.ndarray, feats: np.ndarray, boxes: np.ndarray,
+                     classes: np.ndarray, num_frames: int, num_regions: int,
+                     feat_dim: int) -> None:
+    """`pad_regions` written into given contiguous [S, D], [S, 5], [S], [S]
+    arrays, every slot overwritten, so a batch buffer can be reused
+    without clearing it first."""
+    if not all(a.flags.c_contiguous for a in (out_f, out_g, out_c, out_m)):
+        raise ValueError("pad_regions_into writes through reshaped views: "
+                         "the output arrays must be C-contiguous")
     if feats.ndim == 2:
         feats, boxes, classes = feats[None], boxes[None], classes[None]
     F = min(feats.shape[0], num_frames)
-    S = num_frames * num_regions
-    out_f = np.zeros((num_frames, num_regions, feat_dim), dtype=np.float32)
-    out_b = np.zeros((num_frames, num_regions, 4), dtype=np.float32)
-    out_c = np.zeros((num_frames, num_regions), dtype=np.int32)
-    out_m = np.zeros((num_frames, num_regions), dtype=np.float32)
+    n = min(feats.shape[1], num_regions)
     d = min(feats.shape[2], feat_dim)  # zero-pad narrow features, truncate wide
-    for f in range(F):
-        n = min(feats.shape[1], num_regions)
-        out_f[f, :n, :d] = feats[f, :n, :d]
-        out_b[f, :n] = boxes[f, :n]
-        out_c[f, :n] = classes[f, :n]
-        out_m[f, :n] = 1.0
-    return (out_f.reshape(S, feat_dim), box_geometry(out_b.reshape(S, 4)),
-            out_c.reshape(S), out_m.reshape(S))
+    of = out_f.reshape(num_frames, num_regions, feat_dim)
+    ob = out_g.reshape(num_frames, num_regions, 5)
+    oc = out_c.reshape(num_frames, num_regions)
+    om = out_m.reshape(num_frames, num_regions)
+    of[F:] = 0.0
+    of[:F, n:] = 0.0
+    of[:F, :n, d:] = 0.0
+    of[:F, :n, :d] = feats[:F, :n, :d]
+    ob[...] = 0.0
+    ob[:F, :n, :4] = boxes[:F, :n]
+    oc[...] = 0
+    oc[:F, :n] = classes[:F, :n]
+    om[...] = 0.0
+    om[:F, :n] = 1.0
+    w = np.clip(out_g[:, 2] - out_g[:, 0], 0, None)
+    h = np.clip(out_g[:, 3] - out_g[:, 1], 0, None)
+    out_g[:, 4] = w * h

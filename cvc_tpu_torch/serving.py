@@ -14,13 +14,13 @@ caller passes device="cpu".
 from __future__ import annotations
 
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from cvc_tpu_torch.config import Config, EvalConfig
-from cvc_tpu_torch.data.pipeline import pad_regions
+from cvc_tpu_torch.data.pipeline import pad_regions_into
 from cvc_tpu_torch.data.vocab import Vocabulary
 from cvc_tpu_torch.models import core
 from cvc_tpu_torch.models.decoding import make_decoder
@@ -36,6 +36,9 @@ class Captioner:
     decoder: object
     batch_size: int
     device: torch.device
+    # pinned request buffers (CUDA), used in turn; see _staging
+    _pinned: list = field(default_factory=list, repr=False)
+    _turn: int = 0
 
     @staticmethod
     def from_torch(ckpt_path: str, config_json: str, vocab_file: str,
@@ -87,72 +90,103 @@ class Captioner:
         launches are asynchronous, so batch i's device-to-host read waits
         until batch i + depth - 1 has been submitted, and the host packs
         the next batch while the card decodes. Results are identical at
-        any depth, in request order."""
+        any depth, in request order. One call at a time per Captioner: the
+        request buffers are reused."""
         out: list[dict] = []
         inflight: deque = deque()
         depth = max(1, int(pipeline_depth))
         for s in range(0, len(requests), self.batch_size):
             chunk = requests[s:s + self.batch_size]
-            arrays, geom = self._pack(chunk)
+            arrays, boxes = self._pack(chunk)
             res = self.decoder(self.params, arrays)   # queued, not waited on
-            inflight.append((chunk, geom, res))
+            inflight.append((chunk, boxes, res))
             if len(inflight) >= depth:
                 out.extend(self._postprocess(*inflight.popleft()))
         while inflight:
             out.extend(self._postprocess(*inflight.popleft()))
         return out
 
-    def _postprocess(self, chunk: list[dict], geom: np.ndarray,
+    def _postprocess(self, chunk: list[dict], boxes: np.ndarray,
                      res: dict) -> list[dict]:
         """One in-flight result to the response schema (the host waits for
-        the card here)."""
-        out: list[dict] = []
-        tokens = res["tokens"].cpu().numpy()
-        alphas = res["alphas"].cpu().numpy()
-        scores = (res["scores"].cpu().numpy() if "scores" in res
-                  else np.zeros(tokens.shape[0]))
+        the card here). boxes: [n, S, 4], the chunk's padded boxes."""
+        n = len(chunk)
+        tokens = res["tokens"][:n].cpu().numpy()
+        alphas = res["alphas"][:n].cpu().numpy()                  # [n, L, S]
+        scores = (res["scores"][:n].cpu().numpy() if "scores" in res
+                  else np.zeros(n))
         sents = self.vocab.decode_sequence(tokens)
-        for i in range(len(chunk)):
-            boxes = geom[i][:, :4]
-            grounding = []
-            for t, w in enumerate(sents[i].split()):
-                slot = int(np.argmax(alphas[i, t]))
-                grounding.append({
-                    "word": w,
-                    "box": [float(v) for v in boxes[slot]],
-                    "weight": float(alphas[i, t, slot]),
-                })
-            out.append({"caption": sents[i],
-                        "score": float(scores[i]),
-                        "grounding": grounding})
-        return out
+        slots = alphas.argmax(axis=-1)                            # [n, L]
+        weights = np.take_along_axis(alphas, slots[..., None], -1)[..., 0]
+        word_boxes = boxes[np.arange(n)[:, None], slots]          # [n, L, 4]
+        return [{"caption": sents[i],
+                 "score": float(scores[i]),
+                 "grounding": [{"word": w,
+                                "box": word_boxes[i, t].tolist(),
+                                "weight": float(weights[i, t])}
+                               for t, w in enumerate(sents[i].split())]}
+                for i in range(n)]
 
     def _pack(self, chunk: list[dict]):
         """Pad one chunk of requests to the batch's static shapes; returns
-        (the model's input tensors on the device, box geometry in numpy)."""
+        (the model's input tensors on the device, the chunk's boxes
+        [n, S, 4] in numpy)."""
         mc = self.model_cfg
-        B = self.batch_size
-        S = mc.total_regions
-        feats = np.zeros((B, S, mc.feat_dim), np.float32)
-        geom = np.zeros((B, S, 5), np.float32)
-        cls = np.zeros((B, S), np.int32)
-        mask = np.zeros((B, S), np.float32)
-        gfeat = (np.zeros((B, mc.global_feat_dim), np.float32)
-                 if mc.global_feat_dim else None)
-        for i, r in enumerate(chunk):
+        host, turn = self._staging()
+        feats, geom, cls, mask = (host[k].numpy() for k in (
+            "feats", "box_geom", "region_cls", "region_mask"))
+        gfeat = host["global_feat"].numpy() if "global_feat" in host else None
+        for i in range(self.batch_size):
+            if i >= len(chunk):                 # padding rows of the batch
+                feats[i], geom[i], cls[i], mask[i] = 0.0, 0.0, 0, 0.0
+                if gfeat is not None:
+                    gfeat[i] = 0.0
+                continue
+            r = chunk[i]
             f = np.asarray(r["features"], np.float32)
             b = np.asarray(r["boxes"], np.float32)
             c = np.asarray(r.get("classes",
                                  np.zeros(b.shape[:-1], np.int32)), np.int32)
-            feats[i], geom[i], cls[i], mask[i] = pad_regions(
-                f, b, c, mc.num_frames, mc.num_regions, mc.feat_dim)
-            if gfeat is not None and "global_feat" in r:
-                g = np.asarray(r["global_feat"], np.float32)
-                gfeat[i, :g.shape[0]] = g[:mc.global_feat_dim]
-        host = dict(feats=feats, box_geom=geom, region_cls=cls,
-                    region_mask=mask)
-        if gfeat is not None:
-            host["global_feat"] = gfeat
-        arrays = {k: torch.from_numpy(v).to(self.device)
-                  for k, v in host.items()}
-        return arrays, geom
+            pad_regions_into(feats[i], geom[i], cls[i], mask[i], f, b, c,
+                             mc.num_frames, mc.num_regions, mc.feat_dim)
+            if gfeat is not None:
+                gfeat[i] = 0.0
+                if "global_feat" in r:
+                    g = np.asarray(r["global_feat"], np.float32)
+                    gfeat[i, :g.shape[0]] = g[:mc.global_feat_dim]
+        boxes = geom[:len(chunk), :, :4].copy()
+        arrays = {k: t.to(self.device, non_blocking=True)
+                  for k, t in host.items()}
+        if turn is not None:                    # the set is free again once
+            done = torch.cuda.Event()           # these copies have run
+            done.record(torch.cuda.current_stream(self.device))
+            self._pinned[turn] = (host, done)
+        return arrays, boxes
+
+    def _staging(self):
+        """Host tensors for the next batch, and the index of their pinned
+        set. On CUDA two sets of pinned buffers are used in turn, so the
+        copy to the card needs no wait on the work queued before it; a set
+        is refilled only after its last copy has run. On the CPU the
+        tensors are fresh (the device tensors share their memory)."""
+        mc = self.model_cfg
+        B, S = self.batch_size, mc.total_regions
+        shapes = {"feats": ((B, S, mc.feat_dim), torch.float32),
+                  "box_geom": ((B, S, 5), torch.float32),
+                  "region_cls": ((B, S), torch.int32),
+                  "region_mask": ((B, S), torch.float32)}
+        if mc.global_feat_dim:
+            shapes["global_feat"] = ((B, mc.global_feat_dim), torch.float32)
+        if self.device.type != "cuda":
+            return {k: torch.zeros(shape, dtype=dt)
+                    for k, (shape, dt) in shapes.items()}, None
+        if not self._pinned:
+            self._pinned = [({k: torch.empty(shape, dtype=dt, pin_memory=True)
+                              for k, (shape, dt) in shapes.items()}, None)
+                            for _ in range(2)]
+        turn = self._turn
+        self._turn = 1 - turn
+        host, done = self._pinned[turn]
+        if done is not None:
+            done.synchronize()
+        return host, turn

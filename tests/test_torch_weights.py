@@ -112,3 +112,28 @@ def test_vocab_and_padding_match_jax(tmp_path):
                                  8, 12)
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("shape,frames,regions,dim", [
+    ((7, 10), 1, 8, 12),       # fewer proposals than slots, narrow features
+    ((12, 20), 1, 8, 12),      # more proposals than slots, wide features
+    ((3, 5, 10), 2, 8, 12),    # video: more frames than the model takes
+    ((1, 9, 10), 3, 8, 6),     # video: fewer frames
+])
+def test_pad_regions_into_overwrites_a_used_buffer(shape, frames, regions,
+                                                   dim):
+    """The serving path pads into reused buffers: every slot must be
+    rewritten, and the result equal the JAX package's pad_regions."""
+    rng = np.random.default_rng(0)
+    f = rng.normal(size=shape).astype(np.float32)
+    b = rng.uniform(size=shape[:-1] + (4,)).astype(np.float32)
+    c = rng.integers(0, 9, size=shape[:-1]).astype(np.int32)
+    S = frames * regions
+    outs = (np.full((S, dim), np.nan, np.float32),
+            np.full((S, 5), np.nan, np.float32), np.full((S,), 7, np.int32),
+            np.full((S,), np.nan, np.float32))
+    tpipe.pad_regions_into(*outs, f, b, c, frames, regions, dim)
+    want = jpipe.pad_regions(f, b, c, frames, regions, dim)
+    for g, w in zip(outs, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
