@@ -12,6 +12,8 @@
    kernel, its plain version and (top-k) the library's topk + logsumexp,
    and computes each kernel's bound: the larger of the bytes it must move
    over 3.35 TB/s and its operations over the card's peak for the type.
+   Then checks each kernel at small odd shapes that take its general
+   (unvectorized) paths.
 3. Drives the serving path at flagship width (vocab 8704, E 512, H 1024,
    A 512, 2048-d features, 128 slots with 100 live, 20 words) with seeded
    random weights: `Captioner.build(..., beam_size=5, batch_size=64)` on
@@ -299,6 +301,68 @@ def kernel_phase(sm: Smoke, results: dict) -> None:
                    sets, bytes_, 2 * N * V, lse_err, library=library)
 
 
+def odd_shape_phase(sm: Smoke) -> None:
+    """Each kernel against its plain version at small shapes that take the
+    kernels' general paths: widths that are no multiple of the 16-byte
+    vector, an A that the vectorized query product does not take, K = 8,
+    a vocabulary that is no multiple of 8, and a misaligned input."""
+    torch = sm.torch
+    from cvc_tpu_torch.ops.kernels import attention, decoder_step, lstm
+    from cvc_tpu_torch.ops.kernels import topk_select
+
+    gen = torch.Generator(device=sm.dev).manual_seed(1)
+    for dname, dt in (("float32", torch.float32),
+                      ("bfloat16", torch.bfloat16)):
+        def randn(*shape, scale=1.0):
+            return (torch.randn(shape, generator=gen, device=sm.dev)
+                    * scale).to(dt)
+
+        def mask(B, S):
+            m = (torch.arange(S, device=sm.dev)[None, :]
+                 < torch.tensor([S, 5, 0][:B] + [S - 2] * (B - 3),
+                                device=sm.dev)[:, None]).float()
+            return m.contiguous()
+
+        g, c = randn(5, 4 * 18), randn(5, 18)
+        sm.compare(f"fused_lstm_gates {dname} R=5 H=18",
+                   lstm.fused_lstm_gates(g, c), lstm.lstm_gates_plain(g, c),
+                   dname, ("h", "c"))
+
+        B, S, A, H = 3, 13, 24, 20
+        flat = randn(B * S * A + 1)
+        keys = flat[1:].view(B, S, A)                # misaligned by 1 element
+        args = (keys, randn(B, A, scale=0.5), randn(A, scale=0.2),
+                torch.relu(randn(B, S, H)), mask(B, S))
+        sm.compare(f"fused_additive_attention {dname} B={B} S={S} A={A} "
+                   f"H={H}, misaligned keys",
+                   attention.fused_additive_attention(*args),
+                   attention.additive_attention_plain(*args), dname,
+                   ("ctx", "alpha"))
+
+        for B, K in ((3, 3), (4, 8)):
+            args = (randn(B, K, 4 * H, scale=2.0), randn(B, K, H),
+                    randn(B, S, A), torch.relu(randn(B, S, H)), mask(B, S),
+                    randn(H, A, scale=0.3), randn(A, scale=0.1),
+                    randn(A, scale=0.2))
+            sm.compare(f"fused_beam_decoder_core {dname} B={B} K={K} S={S} "
+                       f"A={A} H={H}",
+                       decoder_step.fused_beam_decoder_core(*args),
+                       decoder_step.beam_core_oracle(*args), dname,
+                       ("h", "c", "ctx", "alpha"))
+
+        for N, V, k in ((7, 131, 8), (5, 200, 3)):
+            x = randn(N, V, scale=2.0)
+            x[0, [3, 60, 100]] = 9.0                # equal maxima
+            got = topk_select.fused_topk_lse(x, k)
+            want = topk_select.topk_lse_plain(x, k)
+            sm.check(bool(torch.equal(got[1], want[1])
+                          and torch.equal(got[0], want[0])
+                          and torch.allclose(got[2], want[2], rtol=1e-5,
+                                             atol=1e-5)),
+                     f"fused_topk_lse {dname} N={N} V={V} k={k}: indices "
+                     f"and values exact, lse within 1e-5")
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the serving path
 # ---------------------------------------------------------------------------
@@ -543,6 +607,7 @@ def main() -> int:
 
     results: dict = {}
     kernel_phase(sm, results)
+    odd_shape_phase(sm)
     counts: dict = {}
     serving_phase(sm, smi, counts)
 

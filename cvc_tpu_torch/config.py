@@ -9,7 +9,6 @@ reference-style command line belongs to the training slice.
 
 from __future__ import annotations
 
-import dataclasses
 import json
 from dataclasses import dataclass, field
 from typing import Optional
@@ -89,9 +88,6 @@ class Config:
     data: dict = field(default_factory=dict)    # untyped until ported
     train: dict = field(default_factory=dict)   # untyped until ported
     id: str = "cvc"
-
-    def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
 
     @staticmethod
     def from_json(s: str) -> "Config":

@@ -63,6 +63,4 @@ def pad_regions_into(out_f: np.ndarray, out_g: np.ndarray, out_c: np.ndarray,
     oc[:F, :n] = classes[:F, :n]
     om[...] = 0.0
     om[:F, :n] = 1.0
-    w = np.clip(out_g[:, 2] - out_g[:, 0], 0, None)
-    h = np.clip(out_g[:, 3] - out_g[:, 1], 0, None)
-    out_g[:, 4] = w * h
+    out_g[...] = box_geometry(out_g[:, :4])

@@ -171,8 +171,8 @@ def encode_regions(params, cfg, feats, box_geom, region_cls, region_mask,
 # Decoder step
 # ---------------------------------------------------------------------------
 
-def initial_state(batch: int, rnn_size: int, dtype=torch.float32,
-                  device="cpu"):
+def initial_state(batch: int, rnn_size: int, dtype: torch.dtype,
+                  device: torch.device):
     z = torch.zeros((batch, rnn_size), dtype=dtype, device=device)
     return (z, z, z, z)  # (h_att, c_att, h_lang, c_lang)
 
