@@ -17,6 +17,8 @@
 // that enough loads are in flight. Padding slots (mask 0) are not read at
 // all. The S axis is looped over, so the 1280-slot video width needs only
 // 12 * S bytes of shared memory.
+#include <type_traits>
+
 #include "attention_common.cuh"
 
 namespace {
@@ -36,7 +38,8 @@ additive_attention_kernel(const T* __restrict__ keys, const T* __restrict__ q,
   float* sc_s = m_s + S;                                // [S]
   int* live = reinterpret_cast<int*>(sc_s + S);         // [S]
   int* n_live = live + S;                               // [1]
-  float* part = reinterpret_cast<float*>(n_live + 1);   // context partial sums
+  // context partial sums; for bf16 rows, q and w as bf16 pairs first
+  float* part = reinterpret_cast<float*>(n_live + 1);
   const int b = blockIdx.x;
   for (int a = threadIdx.x; a < A; a += blockDim.x) {
     q_s[a] = to_f(q[static_cast<long long>(b) * A + a]);
@@ -46,8 +49,18 @@ additive_attention_kernel(const T* __restrict__ keys, const T* __restrict__ q,
   __syncthreads();
   list_live_slots(m_s, S, live, n_live);
   __syncthreads();
-  attention_scores<T, VEC, true>(keys + static_cast<long long>(b) * S * A, live, *n_live,
-                                 q_s, w_s, sc_s, 1, S, A);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && VEC == 8) {
+    __nv_bfloat162* q2 = reinterpret_cast<__nv_bfloat162*>(part);   // [A/2]
+    __nv_bfloat162* w2 = q2 + A / 2;                                // [A/2]
+    pack_bf16x2(q_s, q2, A);
+    pack_bf16x2(w_s, w2, A);
+    __syncthreads();
+    attention_scores_bf16x2<true>(keys + static_cast<long long>(b) * S * A, live, *n_live, q2,
+                                  w_s, w2, sc_s, 1, S, A);
+  } else {
+    attention_scores<T, VEC, true>(keys + static_cast<long long>(b) * S * A, live, *n_live,
+                                   q_s, w_s, sc_s, 1, S, A);
+  }
   __syncthreads();
   masked_softmax_rows(sc_s, m_s, alpha + static_cast<long long>(b) * S, 1, S);
   __syncthreads();
@@ -58,8 +71,9 @@ additive_attention_kernel(const T* __restrict__ keys, const T* __restrict__ q,
 template <typename T, int VEC>
 int launch(const void* keys, const void* q, const void* w, const void* v, const void* mask,
            void* ctx, void* alpha, int B, int S, int A, int H, cudaStream_t stream) {
+  const int part = context_partial_floats(1, H, VEC, kAttnThreads);
   const size_t smem = sizeof(float) * (2 * static_cast<size_t>(A) + 3 * static_cast<size_t>(S) + 1 +
-                                       context_partial_floats(1, H, VEC, kAttnThreads));
+                                       (part > A ? part : A));
   if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = additive_attention_kernel<T, VEC>;
   if (smem > 48 * 1024) {

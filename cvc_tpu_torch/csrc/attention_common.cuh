@@ -21,7 +21,8 @@ constexpr float kMaskedScore = -1e30f;
 // tanh of the scores. bf16: the hardware tanh (tanh.approx.f32, relative
 // error below 2^-10.9), whose result is then rounded to bf16 (steps of
 // 2^-8), so it moves a rounded e by at most one step and only near a
-// rounding boundary. float32: the accurate tanhf.
+// rounding boundary. float32: the accurate tanhf. (bf16 rows of 16 bytes
+// take attention_scores_bf16x2 instead.)
 template <typename T> __device__ __forceinline__ float score_tanh(float x);
 template <> __device__ __forceinline__ float score_tanh<float>(float x) { return tanhf(x); }
 template <> __device__ __forceinline__ float score_tanh<__nv_bfloat16>(float x) {
@@ -90,6 +91,76 @@ __device__ void attention_scores(const T* __restrict__ keys, const int* live, in
   }
 }
 
+// tanh of two bf16 values: the float32 hardware tanh of each, rounded to
+// bf16 by one paired conversion. (tanh.approx.bf16x2 is cheaper, but its
+// error moved alpha ~50x further from the plain version on the card.)
+__device__ __forceinline__ __nv_bfloat162 tanh_bf16x2(__nv_bfloat162 x) {
+  return __floats2bfloat162_rn(score_tanh<__nv_bfloat16>(__low2float(x)),
+                               score_tanh<__nv_bfloat16>(__high2float(x)));
+}
+
+// attention_scores for bf16 with 16-byte rows of keys, on pairs: keys + q
+// is one bf16x2 add (it rounds once, as rnd(float sum) does: the float
+// sum of two bf16 values is exact at these magnitudes) and the two tanh
+// results are rounded by one paired conversion, so a pair needs one
+// float-to-bf16 conversion instead of four. q2 [K, A/2] and w2 [A/2] are q and w as
+// bf16 pairs; w is float. ROUND_PROD multiplies e * w as bf16x2 (the
+// product of two bf16 is exact in float, so this is rnd(e * w)).
+template <bool ROUND_PROD>
+__device__ void attention_scores_bf16x2(const __nv_bfloat16* __restrict__ keys, const int* live,
+                                        int n_live, const __nv_bfloat162* q2, const float* w,
+                                        const __nv_bfloat162* w2, float* scores, int K, int S,
+                                        int A) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int A2 = A / 2;
+  for (int i = warp; i < n_live; i += nwarps) {
+    const int s = live[i];
+    float acc[kMaxBeams];
+#pragma unroll
+    for (int k = 0; k < kMaxBeams; ++k) acc[k] = 0.f;
+    const __nv_bfloat16* row = keys + static_cast<long long>(s) * A;
+    for (int a0 = lane * 8; a0 < A; a0 += 32 * 8) {
+      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(row + a0));
+      const __nv_bfloat162* kv = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const int ap = a0 / 2 + p;
+        const float w0 = w[2 * ap];
+        const float w1 = w[2 * ap + 1];
+#pragma unroll
+        for (int k = 0; k < kMaxBeams; ++k) {
+          if (k < K) {
+            __nv_bfloat162 e = tanh_bf16x2(__hadd2(kv[p], q2[k * A2 + ap]));
+            if (ROUND_PROD) {
+              e = __hmul2(e, w2[ap]);
+              acc[k] += __low2float(e);
+              acc[k] += __high2float(e);
+            } else {
+              acc[k] = fmaf(__low2float(e), w0, acc[k]);
+              acc[k] = fmaf(__high2float(e), w1, acc[k]);
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kMaxBeams; ++k) {
+      if (k < K) {
+        const float t = warp_sum(acc[k]);
+        if (lane == 0) scores[k * S + s] = t;
+      }
+    }
+  }
+}
+
+// pairs[i] = (x[2i], x[2i + 1]) as bf16 for i < n / 2 (x holds bf16 values).
+__device__ inline void pack_bf16x2(const float* x, __nv_bfloat162* pairs, int n) {
+  for (int i = threadIdx.x; i < n / 2; i += blockDim.x)
+    pairs[i] = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
+}
+
 // In place over scores [K, S]: masked softmax in float32, as the Pallas
 // kernels do it (max over live slots, exp, sum clamped to 1e-9, divide).
 // Masked slots, and every slot of a row with none live, come out 0.
@@ -117,7 +188,7 @@ __device__ inline void masked_softmax_rows(float* scores, const float* mask,
 }
 
 // Shared-memory floats attention_context needs for its partial sums.
-__host__ __device__ inline int context_partial_floats(int K, int H, int VEC, int threads) {
+inline int context_partial_floats(int K, int H, int VEC, int threads) {
   const int cols = H / VEC;
   const int groups = cols >= threads ? 1 : threads / cols;
   return (groups - 1) * K * H;

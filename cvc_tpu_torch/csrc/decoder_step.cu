@@ -30,6 +30,8 @@
 // memory. Steps 2 and 3 run on the CUDA cores; putting step 2 on the
 // tensor cores, sharing att_wh across blocks, and spreading an image over
 // more than one SM are left for later.
+#include <type_traits>
+
 #include "attention_common.cuh"
 
 namespace {
@@ -94,7 +96,7 @@ __device__ void query_product(const T* __restrict__ att_wh, const T* __restrict_
     for (int k = 0; k < kMaxBeams; ++k)
 #pragma unroll
       for (int v = 0; v < QV; ++v) acc[k][v] = 0.f;
-#pragma unroll 4
+#pragma unroll 8
     for (int j = jg; j < H; j += 8) {
       alignas(16) T w[QV];
       load_vec<T, QV>(w, att_wh + static_cast<long long>(j) * A + a0);
@@ -160,7 +162,8 @@ beam_decoder_core_kernel(const T* __restrict__ gates1, const T* __restrict__ c_a
   float* sc_s = m_s + S;                                // [K, S]
   int* live = reinterpret_cast<int*>(sc_s + K * S);     // [S]
   int* n_live = live + S;                               // [1]
-  float* part = reinterpret_cast<float*>(n_live + 1);   // context partial sums
+  // context partial sums; for bf16 rows, q as bf16 pairs [K, A/2] first
+  float* part = reinterpret_cast<float*>(n_live + 1);
   const int b = blockIdx.x;
   const long long row0 = static_cast<long long>(b) * K;
 
@@ -179,8 +182,16 @@ beam_decoder_core_kernel(const T* __restrict__ gates1, const T* __restrict__ c_a
   __syncthreads();
 
   // 3-5. scores, softmax, context
-  attention_scores<T, VEC, false>(keys + static_cast<long long>(b) * S * A, live, *n_live,
-                                  q_s, w_s, sc_s, K, S, A);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && VEC == 8) {
+    __nv_bfloat162* q2 = reinterpret_cast<__nv_bfloat162*>(part);
+    pack_bf16x2(q_s, q2, K * A);
+    __syncthreads();
+    attention_scores_bf16x2<false>(keys + static_cast<long long>(b) * S * A, live, *n_live,
+                                   q2, w_s, nullptr, sc_s, K, S, A);
+  } else {
+    attention_scores<T, VEC, false>(keys + static_cast<long long>(b) * S * A, live, *n_live,
+                                    q_s, w_s, sc_s, K, S, A);
+  }
   __syncthreads();
   masked_softmax_rows(sc_s, m_s, alpha + row0 * S, K, S);
   __syncthreads();
@@ -193,8 +204,9 @@ int launch(const void* gates1, const void* c_att, const void* keys, const void* 
            const void* mask, const void* att_wh, const void* att_b, const void* att_w,
            void* h_out, void* c_out, void* ctx, void* alpha, int B, int K, int S, int A,
            int H, cudaStream_t stream) {
+  const int part = context_partial_floats(K, H, VEC, kAttnThreads);
   const size_t smem = sizeof(float) * (static_cast<size_t>(K) * (H + A + S) + A + 2 * S + 1 +
-                                       context_partial_floats(K, H, VEC, kAttnThreads));
+                                       (part > K * A / 2 ? part : K * A / 2));
   if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = beam_decoder_core_kernel<T, VEC>;
   if (smem > 48 * 1024) {
