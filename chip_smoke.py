@@ -216,7 +216,7 @@ def kernel_phase(sm: Smoke, results: dict) -> None:
             return (randn(B, S, A, dtype=dt), randn(B, A, scale=0.5, dtype=dt),
                     randn(A, scale=A ** -0.5, dtype=dt),
                     torch.relu(randn(B, S, H)).to(dt), mask_for(B, S, live))
-        n_live = (B - 1) * live
+        n_live = int(mask_for(B, S, live).sum())     # live rows read
         bytes_ = (n_live * (A + H) + B * A + A + B * H) * sz + 2 * B * S * 4
         sets = [mk_attn() for _ in range(n_sets(bytes_))]
         got = attention.fused_additive_attention(*sets[0])
@@ -247,7 +247,7 @@ def kernel_phase(sm: Smoke, results: dict) -> None:
                           * 2 - 1) * lim).to(dt),
                         randn(A, scale=0.1, dtype=dt),
                         randn(A, scale=A ** -0.5, dtype=dt))
-            n_live = (B - 1) * live
+            n_live = int(mask_for(B, S, live).sum())
             bytes_ = ((B * K * 4 * H + B * K * H + n_live * (A + H) + H * A
                        + 2 * A + 3 * B * K * H) * sz
                       + B * S * 4 + B * K * S * 4)

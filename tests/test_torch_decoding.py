@@ -7,7 +7,8 @@ sums taken in another order). JAX runs its plain path (use_pallas=False);
 the kernels' plain versions are held against the Pallas kernels in
 tests/test_torch_kernels_cpu.py. The port runs both its plain path and its
 kernel path (use_pallas=True on CPU tensors takes each wrapper's plain
-version).
+version). The bf16 beam_select_bf16 knob is held against the port's own
+plain select.
 """
 
 import dataclasses
@@ -87,18 +88,39 @@ def test_beam_search_all_beams_match_jax():
                                    err_msg=key, **TOL)
 
 
-@pytest.mark.parametrize("kernels", [False, True])
-def test_greedy_decode_matches_jax(kernels):
+@pytest.mark.parametrize("kernels,temperature", [(False, 1.0), (True, 1.0),
+                                                (True, 0.7)])
+def test_greedy_decode_matches_jax(kernels, temperature):
     jcfg, jparams, arrays, tparams = _setup(batch=5, seed=11)
     want = jdec.greedy_decode(jparams, jcfg, _j(arrays),
-                              max_len=jcfg.seq_length)
+                              max_len=jcfg.seq_length,
+                              temperature=temperature)
     got = tdec.greedy_decode(tparams, _port_cfg(jcfg, kernels), _t(arrays),
-                             max_len=jcfg.seq_length)
+                             max_len=jcfg.seq_length,
+                             temperature=temperature)
     np.testing.assert_array_equal(got["tokens"].numpy(),
                                   np.asarray(want["tokens"]))
     for key in ("logprobs", "alphas"):
         np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
                                    err_msg=key, **TOL)
+
+
+def test_beam_select_bf16_fused_and_plain_select_agree():
+    """The serving knob beam_select_bf16 (bf16 logits into the select):
+    the fused select and the plain select pick the same beams."""
+    jcfg, _, arrays, tparams = _setup(batch=4, seed=5)
+    outs = []
+    for select in (False, True):
+        cfg = dataclasses.replace(_port_cfg(jcfg, False), dtype="bfloat16",
+                                  beam_select_bf16=True,
+                                  pallas_select=select)
+        outs.append(tdec.beam_search(tparams, cfg, _t(arrays), beam_size=3,
+                                     max_len=jcfg.seq_length))
+    np.testing.assert_array_equal(outs[0]["tokens"].numpy(),
+                                  outs[1]["tokens"].numpy())
+    np.testing.assert_allclose(outs[0]["scores"].numpy(),
+                               outs[1]["scores"].numpy(), rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_top_k_lowest_index_matches_lax_top_k():
