@@ -12,8 +12,8 @@
    kernel, its plain version and (top-k) the library's topk + logsumexp,
    and computes each kernel's bound: the larger of the bytes it must move
    over 3.35 TB/s and its operations over the card's peak for the type.
-   Then checks each kernel at small odd shapes that take its general
-   (unvectorized) paths.
+   Then checks that each wrapper raises on a width or an alignment its
+   kernel does not take.
 3. Drives the serving path at flagship width (vocab 8704, E 512, H 1024,
    A 512, 2048-d features, 128 slots with 100 live, 20 words) with seeded
    random weights: `Captioner.build(..., beam_size=5, batch_size=64)` on
@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -44,6 +45,7 @@ SEQ = 20
 STEPS = SEQ + 1                              # L = max_len + 1 decode steps
 BATCH, BEAM = 64, 5
 N_REQUESTS, LIVE_REGIONS = 128, 100
+WINDOWS = 5                                  # timed windows of each rate
 DEVICE = "cuda"
 
 
@@ -58,11 +60,23 @@ def flagship_config():
 # another order and CUDA's expf/tanhf against PyTorch's. bf16: the same
 # rounding points on both sides, but a float32 difference at a rounding
 # boundary flips one bf16 step (2^-8 relative), which the softmax and the
-# context sums carry on.
+# context sums carry on. alpha takes `alpha_tol`.
 TOL = {
     "float32": {"default": (1e-4, 1e-4), "alpha": (1e-5, 1e-4)},
-    "bfloat16": {"default": (2e-2, 2e-2), "alpha": (5e-3, 2e-2)},
+    "bfloat16": {"default": (2e-2, 2e-2)},
 }
+
+
+def alpha_tol(dtype: str, live: int) -> tuple[float, float]:
+    """(abs, rel) tolerance of alpha, the grounding output, with `live`
+    live slots an image. bf16: atol is 1% of a uniform weight 1/live
+    (1e-4 at 100 live slots, 1e-5 at 1000), 8x and 5.7x the beam core's
+    largest errors on an H100 (1.25e-5 and 1.76e-6), so an alpha that is
+    uniform or mixed between beams fails at either width; rtol 2e-3 is
+    2.8x the largest relative error (7.2e-4)."""
+    if dtype == "float32":
+        return TOL["float32"]["alpha"]
+    return (1e-2 / live, 2e-3)
 
 
 class Smoke:
@@ -117,8 +131,10 @@ class Smoke:
         return self._cycles_per_ms
 
     # -- comparisons ---------------------------------------------------
-    def compare(self, label, got, want, dtype, names):
-        """Max abs/rel error of each output; returns the max abs error."""
+    def compare(self, label, got, want, dtype, names, tol=None):
+        """Max abs/rel error of each output; returns the max abs error.
+        `tol` maps an output's name to its (abs, rel) tolerance where it
+        is not TOL's."""
         worst = 0.0
         for g, w, name in zip(got, want, names):
             g, w = g.float(), w.float()
@@ -127,7 +143,8 @@ class Smoke:
             abs_err = float(diff.max()) if diff.numel() else 0.0
             rel_err = float((diff / w.abs().clamp(min=1e-6)).max()) \
                 if diff.numel() else 0.0
-            atol, rtol = TOL[dtype].get(name, TOL[dtype]["default"])
+            atol, rtol = (tol or {}).get(name) or TOL[dtype].get(
+                name, TOL[dtype]["default"])
             ok = (ok_shape and bool(self.torch.isfinite(g).all())
                   and bool((diff <= atol + rtol * w.abs()).all()))
             self.check(ok, f"{label} {name}: max_abs_err {abs_err:.3e} "
@@ -222,7 +239,8 @@ def kernel_phase(sm: Smoke, results: dict) -> None:
         got = attention.fused_additive_attention(*sets[0])
         want = attention.additive_attention_plain(*sets[0])
         err = sm.compare(f"fused_additive_attention {dname} B={B} S={S}",
-                         got, want, dname, ("ctx", "alpha"))
+                         got, want, dname, ("ctx", "alpha"),
+                         {"alpha": alpha_tol(dname, live)})
         sm.check(bool((got[1][3] == 0).all() and (got[0][3] == 0).all()),
                  f"fused_additive_attention {dname}: fully masked image "
                  f"gives alpha = 0 and ctx = 0")
@@ -258,7 +276,8 @@ def kernel_phase(sm: Smoke, results: dict) -> None:
             want = decoder_step.beam_core_oracle(*sets[0])
             label = f"fused_beam_decoder_core {dname} B={B} K={K} S={S}"
             err = sm.compare(label, got, want, dname,
-                             ("h", "c", "ctx", "alpha"))
+                             ("h", "c", "ctx", "alpha"),
+                             {"alpha": alpha_tol(dname, live)})
             sm.check(bool((got[3][3] == 0).all() and (got[2][3] == 0).all()),
                      f"{label}: fully masked image gives alpha = 0, ctx = 0")
             record(key if dname == "bfloat16" else None,
@@ -301,66 +320,54 @@ def kernel_phase(sm: Smoke, results: dict) -> None:
                    sets, bytes_, 2 * N * V, lse_err, library=library)
 
 
-def odd_shape_phase(sm: Smoke) -> None:
-    """Each kernel against its plain version at small shapes that take the
-    kernels' general paths: widths that are no multiple of the 16-byte
-    vector, an A that the vectorized query product does not take, K = 8,
-    a vocabulary that is no multiple of 8, and a misaligned input."""
+def reject_phase(sm: Smoke) -> None:
+    """Each wrapper raises ValueError on a width or an alignment its kernel
+    does not take: the kernels move rows in 16-byte vectors only."""
     torch = sm.torch
     from cvc_tpu_torch.ops.kernels import attention, decoder_step, lstm
     from cvc_tpu_torch.ops.kernels import topk_select
 
-    gen = torch.Generator(device=sm.dev).manual_seed(1)
-    for dname, dt in (("float32", torch.float32),
-                      ("bfloat16", torch.bfloat16)):
-        def randn(*shape, scale=1.0):
-            return (torch.randn(shape, generator=gen, device=sm.dev)
-                    * scale).to(dt)
+    def z(*shape):
+        return torch.zeros(shape, device=sm.dev)
 
-        def mask(B, S):
-            m = (torch.arange(S, device=sm.dev)[None, :]
-                 < torch.tensor([S, 5, 0][:B] + [S - 2] * (B - 3),
-                                device=sm.dev)[:, None]).float()
-            return m.contiguous()
+    def off(*shape):                   # contiguous, 4 bytes past 16 bytes
+        return torch.zeros(math.prod(shape) + 1, device=sm.dev)[1:].view(
+            shape)
 
-        g, c = randn(5, 4 * 18), randn(5, 18)
-        sm.compare(f"fused_lstm_gates {dname} R=5 H=18",
-                   lstm.fused_lstm_gates(g, c), lstm.lstm_gates_plain(g, c),
-                   dname, ("h", "c"))
+    B, K, S, A, H = 2, 3, 8, 64, 32
+    m = z(B, S)
 
-        B, S, A, H = 3, 13, 24, 20
-        flat = randn(B * S * A + 1)
-        keys = flat[1:].view(B, S, A)                # misaligned by 1 element
-        args = (keys, randn(B, A, scale=0.5), randn(A, scale=0.2),
-                torch.relu(randn(B, S, H)), mask(B, S))
-        sm.compare(f"fused_additive_attention {dname} B={B} S={S} A={A} "
-                   f"H={H}, misaligned keys",
-                   attention.fused_additive_attention(*args),
-                   attention.additive_attention_plain(*args), dname,
-                   ("ctx", "alpha"))
+    def core(a=A, keys=None):
+        return decoder_step.fused_beam_decoder_core(
+            z(B, K, 4 * H), z(B, K, H), z(B, S, a) if keys is None else keys,
+            z(B, S, H), m, z(H, a), z(a), z(a))
 
-        for B, K in ((3, 3), (4, 8)):
-            args = (randn(B, K, 4 * H, scale=2.0), randn(B, K, H),
-                    randn(B, S, A), torch.relu(randn(B, S, H)), mask(B, S),
-                    randn(H, A, scale=0.3), randn(A, scale=0.1),
-                    randn(A, scale=0.2))
-            sm.compare(f"fused_beam_decoder_core {dname} B={B} K={K} S={S} "
-                       f"A={A} H={H}",
-                       decoder_step.fused_beam_decoder_core(*args),
-                       decoder_step.beam_core_oracle(*args), dname,
-                       ("h", "c", "ctx", "alpha"))
-
-        for N, V, k in ((7, 131, 8), (5, 200, 3)):
-            x = randn(N, V, scale=2.0)
-            x[0, [3, 60, 100]] = 9.0                # equal maxima
-            got = topk_select.fused_topk_lse(x, k)
-            want = topk_select.topk_lse_plain(x, k)
-            sm.check(bool(torch.equal(got[1], want[1])
-                          and torch.equal(got[0], want[0])
-                          and torch.allclose(got[2], want[2], rtol=1e-5,
-                                             atol=1e-5)),
-                     f"fused_topk_lse {dname} N={N} V={V} k={k}: indices "
-                     f"and values exact, lse within 1e-5")
+    cases = {
+        "fused_lstm_gates H=18": lambda: lstm.fused_lstm_gates(
+            z(4, 72), z(4, 18)),
+        "fused_lstm_gates misaligned c": lambda: lstm.fused_lstm_gates(
+            z(4, 4 * H), off(4, H)),
+        "fused_additive_attention A=18": lambda: (
+            attention.fused_additive_attention(
+                z(B, S, 18), z(B, 18), z(18), z(B, S, H), m)),
+        "fused_additive_attention misaligned keys": lambda: (
+            attention.fused_additive_attention(
+                off(B, S, A), z(B, A), z(A), z(B, S, H), m)),
+        "fused_beam_decoder_core A=24": lambda: core(a=24),
+        "fused_beam_decoder_core misaligned keys": lambda: core(
+            keys=off(B, S, A)),
+        "fused_topk_lse V=131": lambda: topk_select.fused_topk_lse(
+            z(4, 131), 2),
+        "fused_topk_lse misaligned logits": lambda: (
+            topk_select.fused_topk_lse(off(4, 128), 2)),
+    }
+    for label, call in cases.items():
+        try:
+            call()
+        except ValueError as e:
+            sm.check(True, f"{label}: rejected ({e})")
+        else:
+            sm.check(False, f"{label}: accepted, should raise ValueError")
 
 
 # ---------------------------------------------------------------------------
@@ -478,28 +485,36 @@ def throughput(sm: Smoke, cap, reqs, smi: str) -> None:
 
     many = reqs * 2
     cap.caption(reqs[:BATCH], pipeline_depth=2)                # warm
-    best = float("inf")
-    for _ in range(3):
+    times = []
+    for _ in range(WINDOWS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         cap.caption(many, pipeline_depth=2)
-        best = min(best, time.perf_counter() - t0)
-    print(f"beam-5 bf16 B={BATCH}: {len(many) / best:.1f} captions/s "
-          f"through caption() ({len(many)} requests in {best * 1e3:.1f} ms, "
-          f"depth 2) on {smi}", flush=True)
+        times.append(time.perf_counter() - t0)
+    rates = sorted(len(many) / t for t in times)
+    print(f"beam-5 bf16 B={BATCH}: {len(many) * WINDOWS / sum(times):.1f} "
+          f"captions/s through caption() ({WINDOWS} windows of {len(many)} "
+          f"requests, depth 2, total over total time; median window "
+          f"{statistics.median(rates):.1f}, range {rates[0]:.1f}-"
+          f"{rates[-1]:.1f}) on {smi}", flush=True)
 
     arrays = cap._pack(reqs[:BATCH])[0]
-    best = float("inf")
-    for _ in range(3):
+    times = []
+    for _ in range(WINDOWS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(4):
             cap.decoder(cap.params, arrays)
         torch.cuda.synchronize()
-        best = min(best, (time.perf_counter() - t0) / 4)
-    print(f"beam-5 bf16 B={BATCH}: {BATCH / best:.1f} captions/s through "
-          f"the decoder alone ({best * 1e3:.2f} ms a batch of {BATCH}, "
-          f"{best * 1e3 / STEPS:.3f} ms a step) on {smi}", flush=True)
+        times.append((time.perf_counter() - t0) / 4)
+    rates = sorted(BATCH / t for t in times)
+    per_batch = sum(times) / WINDOWS
+    print(f"beam-5 bf16 B={BATCH}: {BATCH / per_batch:.1f} captions/s "
+          f"through the decoder alone ({WINDOWS} windows of 4 batches, total "
+          f"over total time: {per_batch * 1e3:.2f} ms a batch of {BATCH}, "
+          f"{per_batch * 1e3 / STEPS:.3f} ms a step; median window "
+          f"{statistics.median(rates):.1f}, range {rates[0]:.1f}-"
+          f"{rates[-1]:.1f}) on {smi}", flush=True)
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -607,7 +622,7 @@ def main() -> int:
 
     results: dict = {}
     kernel_phase(sm, results)
-    odd_shape_phase(sm)
+    reject_phase(sm)
     counts: dict = {}
     serving_phase(sm, smi, counts)
 

@@ -25,7 +25,7 @@ namespace {
 
 using namespace cvc;
 
-template <typename T, int VEC>
+template <typename T>
 __global__ void __launch_bounds__(kAttnThreads)
 additive_attention_kernel(const T* __restrict__ keys, const T* __restrict__ q,
                           const T* __restrict__ w, const T* __restrict__ v,
@@ -38,7 +38,7 @@ additive_attention_kernel(const T* __restrict__ keys, const T* __restrict__ q,
   float* sc_s = m_s + S;                                // [S]
   int* live = reinterpret_cast<int*>(sc_s + S);         // [S]
   int* n_live = live + S;                               // [1]
-  // context partial sums; for bf16 rows, q and w as bf16 pairs first
+  // context partial sums; in bf16, q and w as bf16 pairs first
   float* part = reinterpret_cast<float*>(n_live + 1);
   const int b = blockIdx.x;
   for (int a = threadIdx.x; a < A; a += blockDim.x) {
@@ -49,7 +49,7 @@ additive_attention_kernel(const T* __restrict__ keys, const T* __restrict__ q,
   __syncthreads();
   list_live_slots(m_s, S, live, n_live);
   __syncthreads();
-  if constexpr (std::is_same<T, __nv_bfloat16>::value && VEC == 8) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     __nv_bfloat162* q2 = reinterpret_cast<__nv_bfloat162*>(part);   // [A/2]
     __nv_bfloat162* w2 = q2 + A / 2;                                // [A/2]
     pack_bf16x2(q_s, q2, A);
@@ -58,29 +58,28 @@ additive_attention_kernel(const T* __restrict__ keys, const T* __restrict__ q,
     attention_scores_bf16x2<true>(keys + static_cast<long long>(b) * S * A, live, *n_live, q2,
                                   w_s, w2, sc_s, 1, S, A);
   } else {
-    attention_scores<T, VEC, true>(keys + static_cast<long long>(b) * S * A, live, *n_live,
-                                   q_s, w_s, sc_s, 1, S, A);
+    attention_scores_f32(keys + static_cast<long long>(b) * S * A, live, *n_live, q_s, w_s,
+                         sc_s, 1, S, A);
   }
   __syncthreads();
   masked_softmax_rows(sc_s, m_s, alpha + static_cast<long long>(b) * S, 1, S);
   __syncthreads();
-  attention_context<T, VEC, true>(v + static_cast<long long>(b) * S * H, live, *n_live, sc_s,
-                                  ctx + static_cast<long long>(b) * H, part, 1, S, H);
+  attention_context<T, true>(v + static_cast<long long>(b) * S * H, live, *n_live, sc_s,
+                             ctx + static_cast<long long>(b) * H, part, 1, S, H);
 }
 
-template <typename T, int VEC>
+template <typename T>
 int launch(const void* keys, const void* q, const void* w, const void* v, const void* mask,
            void* ctx, void* alpha, int B, int S, int A, int H, cudaStream_t stream) {
-  const int part = context_partial_floats(1, H, VEC, kAttnThreads);
+  if (A % kVec<T> != 0 || H % kVec<T> != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int part = context_partial_floats<T>(1, H, kAttnThreads);
   const size_t smem = sizeof(float) * (2 * static_cast<size_t>(A) + 3 * static_cast<size_t>(S) + 1 +
                                        (part > A ? part : A));
-  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = additive_attention_kernel<T, VEC>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  if (smem > kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = additive_attention_kernel<T>;
+  static std::atomic<unsigned> smem_set{0};
+  const cudaError_t e = allow_max_smem(kernel, smem_set);
+  if (e != cudaSuccess) return static_cast<int>(e);
   if (B == 0) return 0;
   kernel<<<B, kAttnThreads, smem, stream>>>(
       static_cast<const T*>(keys), static_cast<const T*>(q), static_cast<const T*>(w),
@@ -97,16 +96,13 @@ extern "C" int cvc_additive_attention_fwd(const void* keys, const void* q, const
                                           void* stream) {
   cudaGetLastError();
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool al = aligned16(keys) && aligned16(v) && aligned16(ctx);
+  if (!(aligned16(keys) && aligned16(v) && aligned16(ctx)))
+    return static_cast<int>(cudaErrorInvalidValue);
   int rc;
   if (dtype == kF32) {
-    rc = (A % 4 == 0 && H % 4 == 0 && al)
-             ? launch<float, 4>(keys, q, w, v, mask, ctx, alpha, B, S, A, H, st)
-             : launch<float, 1>(keys, q, w, v, mask, ctx, alpha, B, S, A, H, st);
+    rc = launch<float>(keys, q, w, v, mask, ctx, alpha, B, S, A, H, st);
   } else if (dtype == kBF16) {
-    rc = (A % 8 == 0 && H % 8 == 0 && al)
-             ? launch<__nv_bfloat16, 8>(keys, q, w, v, mask, ctx, alpha, B, S, A, H, st)
-             : launch<__nv_bfloat16, 1>(keys, q, w, v, mask, ctx, alpha, B, S, A, H, st);
+    rc = launch<__nv_bfloat16>(keys, q, w, v, mask, ctx, alpha, B, S, A, H, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -18,14 +18,11 @@ namespace cvc {
 constexpr int kAttnThreads = 512;      // threads per attention block
 constexpr float kMaskedScore = -1e30f;
 
-// tanh of the scores. bf16: the hardware tanh (tanh.approx.f32, relative
-// error below 2^-10.9), whose result is then rounded to bf16 (steps of
-// 2^-8), so it moves a rounded e by at most one step and only near a
-// rounding boundary. float32: the accurate tanhf. (bf16 rows of 16 bytes
-// take attention_scores_bf16x2 instead.)
-template <typename T> __device__ __forceinline__ float score_tanh(float x);
-template <> __device__ __forceinline__ float score_tanh<float>(float x) { return tanhf(x); }
-template <> __device__ __forceinline__ float score_tanh<__nv_bfloat16>(float x) {
+// The hardware tanh (tanh.approx.f32, relative error below 2^-10.9). The
+// bf16 scores round its result to bf16 (steps of 2^-8), so it moves a
+// rounded e by at most one step and only near a rounding boundary; the
+// float32 scores use the accurate tanhf.
+__device__ __forceinline__ float tanh_approx(float x) {
   float y;
   asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
@@ -47,15 +44,14 @@ __device__ inline void list_live_slots(const float* mask, int S, int* live, int*
   if (lane == 0) *n_live = base;
 }
 
-// scores[k * S + s] = sum_a e * w[a] for each live slot s, with
-// e = rnd(score_tanh(rnd(keys[s, a] + q[k * A + a]))). ROUND_PROD rounds each
-// e * w to T before the float32 sum (cvc_tpu/ops/pallas/attention.py sums
-// e * w formed in the working type; decoder_step.py multiplies in float32).
-// One warp per live row; q, w and scores are in shared memory.
-template <typename T, int VEC, bool ROUND_PROD>
-__device__ void attention_scores(const T* __restrict__ keys, const int* live, int n_live,
-                                 const float* q, const float* w, float* scores,
-                                 int K, int S, int A) {
+// float32: scores[k * S + s] = sum_a tanh(keys[s, a] + q[k * A + a]) * w[a]
+// for each live slot s (the Pallas kernels' rounding points are no-ops in
+// float32). One warp per live row, 16-byte loads; q, w and scores are in
+// shared memory.
+__device__ inline void attention_scores_f32(const float* __restrict__ keys, const int* live,
+                                            int n_live, const float* q, const float* w,
+                                            float* scores, int K, int S, int A) {
+  constexpr int VEC = kVec<float>;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
@@ -64,21 +60,16 @@ __device__ void attention_scores(const T* __restrict__ keys, const int* live, in
     float acc[kMaxBeams];
 #pragma unroll
     for (int k = 0; k < kMaxBeams; ++k) acc[k] = 0.f;
-    const T* row = keys + static_cast<long long>(s) * A;
+    const float* row = keys + static_cast<long long>(s) * A;
     for (int a0 = lane * VEC; a0 < A; a0 += 32 * VEC) {
-      alignas(16) T kv[VEC];
-      load_vec<T, VEC>(kv, row + a0);
+      alignas(16) float kv[VEC];
+      load_vec<float>(kv, row + a0);
 #pragma unroll
       for (int v = 0; v < VEC; ++v) {
-        const float kf = to_f(kv[v]);
         const float wv = w[a0 + v];
 #pragma unroll
-        for (int k = 0; k < kMaxBeams; ++k) {
-          if (k < K) {
-            const float e = rnd<T>(score_tanh<T>(rnd<T>(kf + q[k * A + a0 + v])));
-            acc[k] += ROUND_PROD ? rnd<T>(e * wv) : e * wv;
-          }
-        }
+        for (int k = 0; k < kMaxBeams; ++k)
+          if (k < K) acc[k] = fmaf(tanhf(kv[v] + q[k * A + a0 + v]), wv, acc[k]);
       }
     }
 #pragma unroll
@@ -95,17 +86,18 @@ __device__ void attention_scores(const T* __restrict__ keys, const int* live, in
 // bf16 by one paired conversion. (tanh.approx.bf16x2 is cheaper, but its
 // error moved alpha ~50x further from the plain version on the card.)
 __device__ __forceinline__ __nv_bfloat162 tanh_bf16x2(__nv_bfloat162 x) {
-  return __floats2bfloat162_rn(score_tanh<__nv_bfloat16>(__low2float(x)),
-                               score_tanh<__nv_bfloat16>(__high2float(x)));
+  return __floats2bfloat162_rn(tanh_approx(__low2float(x)), tanh_approx(__high2float(x)));
 }
 
-// attention_scores for bf16 with 16-byte rows of keys, on pairs: keys + q
+// bf16 scores, on pairs: keys + q
 // is one bf16x2 add (it rounds once, as rnd(float sum) does: the float
 // sum of two bf16 values is exact at these magnitudes) and the two tanh
 // results are rounded by one paired conversion, so a pair needs one
 // float-to-bf16 conversion instead of four. q2 [K, A/2] and w2 [A/2] are q and w as
 // bf16 pairs; w is float. ROUND_PROD multiplies e * w as bf16x2 (the
-// product of two bf16 is exact in float, so this is rnd(e * w)).
+// product of two bf16 is exact in float, so this is rnd(e * w)), as
+// cvc_tpu/ops/pallas/attention.py sums e * w formed in the working type;
+// decoder_step.py multiplies in float32. Otherwise as attention_scores_f32.
 template <bool ROUND_PROD>
 __device__ void attention_scores_bf16x2(const __nv_bfloat16* __restrict__ keys, const int* live,
                                         int n_live, const __nv_bfloat162* q2, const float* w,
@@ -187,23 +179,25 @@ __device__ inline void masked_softmax_rows(float* scores, const float* mask,
   }
 }
 
-// Shared-memory floats attention_context needs for its partial sums.
-inline int context_partial_floats(int K, int H, int VEC, int threads) {
-  const int cols = H / VEC;
+// Shared-memory floats attention_context<T> needs for its partial sums.
+template <typename T>
+int context_partial_floats(int K, int H, int threads) {
+  const int cols = H / kVec<T>;
   const int groups = cols >= threads ? 1 : threads / cols;
   return (groups - 1) * K * H;
 }
 
 // ctx[k * H + h] = sum over live s of rnd(alpha[k * S + s]) * v[s, h], summed
 // in float32 (ROUND_PROD rounds each product to T first, as the attention
-// kernel's multiply-reduce does). Each thread owns VEC columns; when the
+// kernel's multiply-reduce does). Each thread owns kVec<T> columns; when the
 // columns need fewer threads than the block has, G groups of threads split
 // the live rows and group 0 adds the others' partial sums (kept in `part`)
 // in group order, so the result does not depend on timing.
-template <typename T, int VEC, bool ROUND_PROD>
+template <typename T, bool ROUND_PROD>
 __device__ void attention_context(const T* __restrict__ v, const int* live, int n_live,
                                   const float* alpha, T* __restrict__ ctx, float* part,
                                   int K, int S, int H) {
+  constexpr int VEC = kVec<T>;
   const int cols = H / VEC;
   const int stride = cols < static_cast<int>(blockDim.x) ? cols : blockDim.x;
   const int G = blockDim.x / stride;
@@ -220,7 +214,7 @@ __device__ void attention_context(const T* __restrict__ v, const int* live, int 
       for (int i = g; i < n_live; i += G) {
         const int s = live[i];
         alignas(16) T vv[VEC];
-        load_vec<T, VEC>(vv, v + static_cast<long long>(s) * H + h0);
+        load_vec<T>(vv, v + static_cast<long long>(s) * H + h0);
 #pragma unroll
         for (int k = 0; k < kMaxBeams; ++k) {
           if (k < K) {
@@ -257,7 +251,7 @@ __device__ void attention_context(const T* __restrict__ v, const int* live, int 
         alignas(16) T out[VEC];
 #pragma unroll
         for (int j = 0; j < VEC; ++j) out[j] = from_f<T>(acc[k][j]);
-        store_vec<T, VEC>(ctx + static_cast<long long>(k) * H + h0, out);
+        store_vec<T>(ctx + static_cast<long long>(k) * H + h0, out);
       }
     }
   }

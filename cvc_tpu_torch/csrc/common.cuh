@@ -4,7 +4,15 @@
 // `rnd<T>` rounds a float32 value to T's precision and back; the kernels
 // call it exactly where the Pallas kernels they replace round to the
 // working type, so bf16 results follow the same rounding points.
+//
+// Every kernel moves its rows in 16-byte vectors (kVec<T> elements) and
+// takes no other layout: the row widths must be multiples of kVec<T> and
+// the vector-read tensors 16-byte aligned. The Python wrappers raise on
+// anything else, and the C entry points return cudaErrorInvalidValue.
+// The model's widths (H, A, the vocabulary padded to 128) all qualify.
 #pragma once
+
+#include <atomic>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -14,8 +22,11 @@ namespace cvc {
 
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
-constexpr int kThreads = 256;   // threads per block in every kernel
-constexpr int kMaxBeams = 8;    // largest K the beam kernels accept
+constexpr int kThreads = 256;              // threads per block in every kernel
+constexpr int kMaxBeams = 8;               // largest K the beam kernels accept
+constexpr int kMaxSmemBytes = 227 * 1024;  // dynamic shared memory per block, sm_90
+
+template <typename T> constexpr int kVec = 16 / static_cast<int>(sizeof(T));
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
@@ -47,28 +58,32 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// VEC consecutive elements; one 16-byte access when VEC * sizeof(T) == 16
-// (the caller guarantees alignment), element by element otherwise.
-template <typename T, int VEC>
-__device__ __forceinline__ void load_vec(T (&dst)[VEC], const T* __restrict__ src) {
-  if constexpr (VEC * sizeof(T) == 16) {
-    *reinterpret_cast<uint4*>(dst) = __ldg(reinterpret_cast<const uint4*>(src));
-  } else {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) dst[i] = src[i];
-  }
+// One 16-byte access of kVec<T> consecutive elements (src 16-byte aligned).
+template <typename T>
+__device__ __forceinline__ void load_vec(T (&dst)[kVec<T>], const T* __restrict__ src) {
+  *reinterpret_cast<uint4*>(dst) = __ldg(reinterpret_cast<const uint4*>(src));
 }
 
-template <typename T, int VEC>
-__device__ __forceinline__ void store_vec(T* __restrict__ dst, const T (&src)[VEC]) {
-  if constexpr (VEC * sizeof(T) == 16) {
-    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-  } else {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) dst[i] = src[i];
-  }
+template <typename T>
+__device__ __forceinline__ void store_vec(T* __restrict__ dst, const T (&src)[kVec<T>]) {
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
 }
 
-__host__ __device__ inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+// Lets `kernel` take up to kMaxSmemBytes of dynamic shared memory on the
+// current device. The attribute is set once for each kernel and device
+// (`done` holds a bit per device), not on every launch.
+template <typename Kernel>
+cudaError_t allow_max_smem(Kernel kernel, std::atomic<unsigned>& done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned bit = 1u << (dev & 31);
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return e;
+}
 
 }  // namespace cvc

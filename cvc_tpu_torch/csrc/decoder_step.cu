@@ -24,8 +24,10 @@
 //      and stays in L2;
 //   3. scores: one warp per live region row, tanh(keys + q) never stored;
 //   4. masked softmax per beam row (float32, fully masked image -> 0);
-//   5. ctx = alpha @ v_enc[b]: each thread owns VEC columns and all K
-//      beams, four groups of threads split the live rows.
+//   5. ctx = alpha @ v_enc[b]: each thread owns 16 bytes of columns and
+//      all K beams, four groups of threads split the live rows.
+// Rows move in 16-byte vectors only: H a multiple of kVec, A a multiple of
+// 4 * kVec (the q product's warp width), 16-byte aligned tensors.
 // The S axis is looped over, so S = 1280 (the video width) fits in shared
 // memory. Steps 2 and 3 run on the CUDA cores; putting step 2 on the
 // tensor cores, sharing att_wh across blocks, and spreading an image over
@@ -40,12 +42,13 @@ using namespace cvc;
 
 // Step 1, att-LSTM gating for the K beams of image row0 / K: float32
 // inside, h and c out in T, and h (rounded to T) into h_s [K, H]. Each
-// thread takes V consecutive units of one beam (one 16-byte access per
-// gate block when V * sizeof(T) == 16).
-template <typename T, int V>
+// thread takes kVec consecutive units of one beam (one 16-byte access per
+// gate block).
+template <typename T>
 __device__ void gate_beams(const T* __restrict__ gates1, const T* __restrict__ c_att,
                            T* __restrict__ h_out, T* __restrict__ c_out, float* h_s,
                            long long row0, int K, int H) {
+  constexpr int V = kVec<T>;
   const int groups = H / V;
   for (int idx = threadIdx.x; idx < K * groups; idx += blockDim.x) {
     const int k = idx / groups;
@@ -53,11 +56,11 @@ __device__ void gate_beams(const T* __restrict__ gates1, const T* __restrict__ c
     const T* g = gates1 + (row0 + k) * 4 * H + j;
     const long long o = (row0 + k) * H + j;
     alignas(16) T gi[V], gf[V], gg[V], go[V], cc[V], ho[V], co[V];
-    load_vec<T, V>(gi, g);
-    load_vec<T, V>(gf, g + H);
-    load_vec<T, V>(gg, g + 2 * H);
-    load_vec<T, V>(go, g + 3 * H);
-    load_vec<T, V>(cc, c_att + o);
+    load_vec<T>(gi, g);
+    load_vec<T>(gf, g + H);
+    load_vec<T>(gg, g + 2 * H);
+    load_vec<T>(go, g + 3 * H);
+    load_vec<T>(cc, c_att + o);
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       const float i_ = sigmoid_f(to_f(gi[v]));
@@ -70,8 +73,8 @@ __device__ void gate_beams(const T* __restrict__ gates1, const T* __restrict__ c
       co[v] = from_f<T>(c_new);
       h_s[k * H + j + v] = rnd<T>(h_new);
     }
-    store_vec<T, V>(h_out + o, ho);
-    store_vec<T, V>(c_out + o, co);
+    store_vec<T>(h_out + o, ho);
+    store_vec<T>(c_out + o, co);
   }
 }
 
@@ -84,7 +87,7 @@ __device__ void gate_beams(const T* __restrict__ gates1, const T* __restrict__ c
 template <typename T>
 __device__ void query_product(const T* __restrict__ att_wh, const T* __restrict__ att_b,
                               const float* h_s, float* q_s, int K, int A, int H) {
-  constexpr int QV = 16 / sizeof(T);
+  constexpr int QV = kVec<T>;
   constexpr int CW = 4 * QV;
   const int lane = threadIdx.x & 31;
   const int jg = lane >> 2;
@@ -99,7 +102,7 @@ __device__ void query_product(const T* __restrict__ att_wh, const T* __restrict_
 #pragma unroll 8
     for (int j = jg; j < H; j += 8) {
       alignas(16) T w[QV];
-      load_vec<T, QV>(w, att_wh + static_cast<long long>(j) * A + a0);
+      load_vec<T>(w, att_wh + static_cast<long long>(j) * A + a0);
 #pragma unroll
       for (int k = 0; k < kMaxBeams; ++k) {
         if (k < K) {
@@ -125,28 +128,7 @@ __device__ void query_product(const T* __restrict__ att_wh, const T* __restrict_
   }
 }
 
-// Step 2 for any A: one column per thread, a row at a time.
 template <typename T>
-__device__ void query_product_any(const T* __restrict__ att_wh, const T* __restrict__ att_b,
-                                  const float* h_s, float* q_s, int K, int A, int H) {
-  for (int a = threadIdx.x; a < A; a += blockDim.x) {
-    float acc[kMaxBeams];
-#pragma unroll
-    for (int k = 0; k < kMaxBeams; ++k) acc[k] = 0.f;
-    for (int j = 0; j < H; ++j) {
-      const float wv = to_f(att_wh[static_cast<long long>(j) * A + a]);
-#pragma unroll
-      for (int k = 0; k < kMaxBeams; ++k)
-        if (k < K) acc[k] = fmaf(h_s[k * H + j], wv, acc[k]);
-    }
-    const float bias = to_f(att_b[a]);
-#pragma unroll
-    for (int k = 0; k < kMaxBeams; ++k)
-      if (k < K) q_s[k * A + a] = rnd<T>(acc[k] + bias);
-  }
-}
-
-template <typename T, int VEC>
 __global__ void __launch_bounds__(kAttnThreads)
 beam_decoder_core_kernel(const T* __restrict__ gates1, const T* __restrict__ c_att,
                          const T* __restrict__ keys, const T* __restrict__ v_enc,
@@ -162,58 +144,54 @@ beam_decoder_core_kernel(const T* __restrict__ gates1, const T* __restrict__ c_a
   float* sc_s = m_s + S;                                // [K, S]
   int* live = reinterpret_cast<int*>(sc_s + K * S);     // [S]
   int* n_live = live + S;                               // [1]
-  // context partial sums; for bf16 rows, q as bf16 pairs [K, A/2] first
+  // context partial sums; in bf16, q as bf16 pairs [K, A/2] first
   float* part = reinterpret_cast<float*>(n_live + 1);
   const int b = blockIdx.x;
   const long long row0 = static_cast<long long>(b) * K;
 
   // 1. att-LSTM gating, then the list of live slots
-  gate_beams<T, VEC>(gates1, c_att, h_out, c_out, h_s, row0, K, H);
+  gate_beams<T>(gates1, c_att, h_out, c_out, h_s, row0, K, H);
   for (int a = threadIdx.x; a < A; a += blockDim.x) w_s[a] = to_f(att_w[a]);
   for (int s = threadIdx.x; s < S; s += blockDim.x) m_s[s] = mask[static_cast<long long>(b) * S + s];
   __syncthreads();
   list_live_slots(m_s, S, live, n_live);
 
   // 2. attention query for the K beams
-  if (A % (4 * (16 / static_cast<int>(sizeof(T)))) == 0 && aligned16(att_wh))
-    query_product<T>(att_wh, att_b, h_s, q_s, K, A, H);
-  else
-    query_product_any<T>(att_wh, att_b, h_s, q_s, K, A, H);
+  query_product<T>(att_wh, att_b, h_s, q_s, K, A, H);
   __syncthreads();
 
   // 3-5. scores, softmax, context
-  if constexpr (std::is_same<T, __nv_bfloat16>::value && VEC == 8) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     __nv_bfloat162* q2 = reinterpret_cast<__nv_bfloat162*>(part);
     pack_bf16x2(q_s, q2, K * A);
     __syncthreads();
     attention_scores_bf16x2<false>(keys + static_cast<long long>(b) * S * A, live, *n_live,
                                    q2, w_s, nullptr, sc_s, K, S, A);
   } else {
-    attention_scores<T, VEC, false>(keys + static_cast<long long>(b) * S * A, live, *n_live,
-                                    q_s, w_s, sc_s, K, S, A);
+    attention_scores_f32(keys + static_cast<long long>(b) * S * A, live, *n_live, q_s, w_s,
+                         sc_s, K, S, A);
   }
   __syncthreads();
   masked_softmax_rows(sc_s, m_s, alpha + row0 * S, K, S);
   __syncthreads();
-  attention_context<T, VEC, false>(v_enc + static_cast<long long>(b) * S * H, live, *n_live,
-                                   sc_s, ctx + row0 * H, part, K, S, H);
+  attention_context<T, false>(v_enc + static_cast<long long>(b) * S * H, live, *n_live, sc_s,
+                              ctx + row0 * H, part, K, S, H);
 }
 
-template <typename T, int VEC>
+template <typename T>
 int launch(const void* gates1, const void* c_att, const void* keys, const void* v_enc,
            const void* mask, const void* att_wh, const void* att_b, const void* att_w,
            void* h_out, void* c_out, void* ctx, void* alpha, int B, int K, int S, int A,
            int H, cudaStream_t stream) {
-  const int part = context_partial_floats(K, H, VEC, kAttnThreads);
+  if (A % (4 * kVec<T>) != 0 || H % kVec<T> != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int part = context_partial_floats<T>(K, H, kAttnThreads);
   const size_t smem = sizeof(float) * (static_cast<size_t>(K) * (H + A + S) + A + 2 * S + 1 +
                                        (part > K * A / 2 ? part : K * A / 2));
-  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = beam_decoder_core_kernel<T, VEC>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  if (smem > kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = beam_decoder_core_kernel<T>;
+  static std::atomic<unsigned> smem_set{0};
+  const cudaError_t e = allow_max_smem(kernel, smem_set);
+  if (e != cudaSuccess) return static_cast<int>(e);
   if (B == 0) return 0;
   kernel<<<B, kAttnThreads, smem, stream>>>(
       static_cast<const T*>(gates1), static_cast<const T*>(c_att), static_cast<const T*>(keys),
@@ -234,21 +212,16 @@ extern "C" int cvc_beam_decoder_core(const void* gates1, const void* c_att, cons
   cudaGetLastError();
   if (K < 1 || K > kMaxBeams) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool al = aligned16(keys) && aligned16(v_enc) && aligned16(ctx) && aligned16(gates1) &&
-                  aligned16(c_att) && aligned16(h_out) && aligned16(c_out);
+  if (!(aligned16(keys) && aligned16(v_enc) && aligned16(ctx) && aligned16(gates1) &&
+        aligned16(c_att) && aligned16(h_out) && aligned16(c_out) && aligned16(att_wh)))
+    return static_cast<int>(cudaErrorInvalidValue);
   int rc;
   if (dtype == kF32) {
-    rc = (A % 4 == 0 && H % 4 == 0 && al)
-             ? launch<float, 4>(gates1, c_att, keys, v_enc, mask, att_wh, att_b, att_w, h_out,
-                                c_out, ctx, alpha, B, K, S, A, H, st)
-             : launch<float, 1>(gates1, c_att, keys, v_enc, mask, att_wh, att_b, att_w, h_out,
-                                c_out, ctx, alpha, B, K, S, A, H, st);
+    rc = launch<float>(gates1, c_att, keys, v_enc, mask, att_wh, att_b, att_w, h_out, c_out,
+                       ctx, alpha, B, K, S, A, H, st);
   } else if (dtype == kBF16) {
-    rc = (A % 8 == 0 && H % 8 == 0 && al)
-             ? launch<__nv_bfloat16, 8>(gates1, c_att, keys, v_enc, mask, att_wh, att_b, att_w,
-                                        h_out, c_out, ctx, alpha, B, K, S, A, H, st)
-             : launch<__nv_bfloat16, 1>(gates1, c_att, keys, v_enc, mask, att_wh, att_b, att_w,
-                                        h_out, c_out, ctx, alpha, B, K, S, A, H, st);
+    rc = launch<__nv_bfloat16>(gates1, c_att, keys, v_enc, mask, att_wh, att_b, att_w, h_out,
+                               c_out, ctx, alpha, B, K, S, A, H, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -7,7 +7,7 @@
 //
 // Bound: bytes. Each element is read once and written once with about ten
 // operations between, far below the card's ~295 operations per byte, so the
-// kernel's only job is to stream: each thread owns VEC consecutive units of
+// kernel's only job is to stream: each thread owns kVec consecutive units of
 // one row and moves them with one 16-byte access per gate block, the block
 // stride loop keeps every SM busy, and nothing is staged in shared memory.
 #include "common.cuh"
@@ -16,10 +16,11 @@ namespace {
 
 using namespace cvc;
 
-template <typename T, int VEC>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 lstm_gates_fwd_kernel(const T* __restrict__ gates, const T* __restrict__ c,
                       T* __restrict__ h_out, T* __restrict__ c_out, int R, int H) {
+  constexpr int VEC = kVec<T>;
   const int groups = H / VEC;
   const long long n = static_cast<long long>(R) * groups;
   for (long long t = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; t < n;
@@ -29,11 +30,11 @@ lstm_gates_fwd_kernel(const T* __restrict__ gates, const T* __restrict__ c,
     const T* g = gates + static_cast<long long>(r) * 4 * H + j;
     const long long o = static_cast<long long>(r) * H + j;
     alignas(16) T gi[VEC], gf[VEC], gg[VEC], go[VEC], cc[VEC], ho[VEC], co[VEC];
-    load_vec<T, VEC>(gi, g);
-    load_vec<T, VEC>(gf, g + H);
-    load_vec<T, VEC>(gg, g + 2 * H);
-    load_vec<T, VEC>(go, g + 3 * H);
-    load_vec<T, VEC>(cc, c + o);
+    load_vec<T>(gi, g);
+    load_vec<T>(gf, g + H);
+    load_vec<T>(gg, g + 2 * H);
+    load_vec<T>(go, g + 3 * H);
+    load_vec<T>(cc, c + o);
 #pragma unroll
     for (int v = 0; v < VEC; ++v) {
       const float i_ = sigmoid_f(to_f(gi[v]));
@@ -44,19 +45,19 @@ lstm_gates_fwd_kernel(const T* __restrict__ gates, const T* __restrict__ c,
       ho[v] = from_f<T>(o_ * tanhf(c_new));
       co[v] = from_f<T>(c_new);
     }
-    store_vec<T, VEC>(h_out + o, ho);
-    store_vec<T, VEC>(c_out + o, co);
+    store_vec<T>(h_out + o, ho);
+    store_vec<T>(c_out + o, co);
   }
 }
 
-template <typename T, int VEC>
+template <typename T>
 void launch(const void* gates, const void* c, void* h, void* c_new, int R, int H,
             cudaStream_t stream) {
-  const long long n = static_cast<long long>(R) * (H / VEC);
+  const long long n = static_cast<long long>(R) * (H / kVec<T>);
   const long long want = (n + kThreads - 1) / kThreads;
   const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
   if (blocks == 0) return;
-  lstm_gates_fwd_kernel<T, VEC><<<blocks, kThreads, 0, stream>>>(
+  lstm_gates_fwd_kernel<T><<<blocks, kThreads, 0, stream>>>(
       static_cast<const T*>(gates), static_cast<const T*>(c), static_cast<T*>(h),
       static_cast<T*>(c_new), R, H);
 }
@@ -67,13 +68,12 @@ extern "C" int cvc_lstm_gates_fwd(const void* gates, const void* c, void* h, voi
                                   int R, int H, int dtype, void* stream) {
   cudaGetLastError();  // report only what this launch does
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool al = aligned16(gates) && aligned16(c) && aligned16(h) && aligned16(c_new);
-  if (dtype == kF32) {
-    if (H % 4 == 0 && al) launch<float, 4>(gates, c, h, c_new, R, H, s);
-    else launch<float, 1>(gates, c, h, c_new, R, H, s);
-  } else if (dtype == kBF16) {
-    if (H % 8 == 0 && al) launch<__nv_bfloat16, 8>(gates, c, h, c_new, R, H, s);
-    else launch<__nv_bfloat16, 1>(gates, c, h, c_new, R, H, s);
+  if (!(aligned16(gates) && aligned16(c) && aligned16(h) && aligned16(c_new)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == kF32 && H % kVec<float> == 0) {
+    launch<float>(gates, c, h, c_new, R, H, s);
+  } else if (dtype == kBF16 && H % kVec<__nv_bfloat16> == 0) {
+    launch<__nv_bfloat16>(gates, c, h, c_new, R, H, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

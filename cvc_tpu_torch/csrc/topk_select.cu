@@ -8,7 +8,8 @@
 //
 // Bound: bytes. Each logit is read once (N * V * 2 bytes in bf16) and takes
 // a handful of compares and one exp. One thread block per row; each thread
-// walks its strided share of the row once with 16-byte loads, keeping a
+// walks its strided share of the row once with 16-byte loads (so V must be
+// a multiple of 16 bytes of elements, as the vocabulary padded to 128 is), keeping a
 // running (max, sum of exp) pair and its own sorted top-k list in registers.
 // The block then merges: the (max, sum) pairs by a shuffle-and-shared-memory
 // reduction, the lists by k rounds of "best head of any list" (value, then
@@ -36,10 +37,11 @@ __device__ __forceinline__ void lse_merge(float& m, float& s, float om, float os
   m = M;
 }
 
-template <typename T, int K, int VEC>
+template <typename T, int K>
 __global__ void __launch_bounds__(kThreads)
 topk_lse_kernel(const T* __restrict__ logits, float* __restrict__ vals, int* __restrict__ idxs,
                 float* __restrict__ lse, int V) {
+  constexpr int VEC = kVec<T>;
   __shared__ float red_v[kThreads / 32];
   __shared__ int red_i[kThreads / 32];
   __shared__ float red_s[kThreads / 32];
@@ -62,7 +64,7 @@ topk_lse_kernel(const T* __restrict__ logits, float* __restrict__ vals, int* __r
 
   for (int c0 = threadIdx.x * VEC; c0 < V; c0 += blockDim.x * VEC) {
     alignas(16) T x[VEC];
-    load_vec<T, VEC>(x, row + c0);
+    load_vec<T>(x, row + c0);
 #pragma unroll
     for (int v = 0; v < VEC; ++v) {
       const float xv = to_f(x[v]);
@@ -150,22 +152,22 @@ topk_lse_kernel(const T* __restrict__ logits, float* __restrict__ vals, int* __r
   }
 }
 
-template <typename T, int VEC>
-int launch_v(const void* logits, void* vals, void* idxs, void* lse, int N, int V, int k,
+template <typename T>
+int launch(const void* logits, void* vals, void* idxs, void* lse, int N, int V, int k,
              cudaStream_t st) {
   const T* x = static_cast<const T*>(logits);
   float* v = static_cast<float*>(vals);
   int* i = static_cast<int*>(idxs);
   float* l = static_cast<float*>(lse);
   switch (k) {
-    case 1: topk_lse_kernel<T, 1, VEC><<<N, kThreads, 0, st>>>(x, v, i, l, V); break;
-    case 2: topk_lse_kernel<T, 2, VEC><<<N, kThreads, 0, st>>>(x, v, i, l, V); break;
-    case 3: topk_lse_kernel<T, 3, VEC><<<N, kThreads, 0, st>>>(x, v, i, l, V); break;
-    case 4: topk_lse_kernel<T, 4, VEC><<<N, kThreads, 0, st>>>(x, v, i, l, V); break;
-    case 5: topk_lse_kernel<T, 5, VEC><<<N, kThreads, 0, st>>>(x, v, i, l, V); break;
-    case 6: topk_lse_kernel<T, 6, VEC><<<N, kThreads, 0, st>>>(x, v, i, l, V); break;
-    case 7: topk_lse_kernel<T, 7, VEC><<<N, kThreads, 0, st>>>(x, v, i, l, V); break;
-    case 8: topk_lse_kernel<T, 8, VEC><<<N, kThreads, 0, st>>>(x, v, i, l, V); break;
+    case 1: topk_lse_kernel<T, 1><<<N, kThreads, 0, st>>>(x, v, i, l, V); break;
+    case 2: topk_lse_kernel<T, 2><<<N, kThreads, 0, st>>>(x, v, i, l, V); break;
+    case 3: topk_lse_kernel<T, 3><<<N, kThreads, 0, st>>>(x, v, i, l, V); break;
+    case 4: topk_lse_kernel<T, 4><<<N, kThreads, 0, st>>>(x, v, i, l, V); break;
+    case 5: topk_lse_kernel<T, 5><<<N, kThreads, 0, st>>>(x, v, i, l, V); break;
+    case 6: topk_lse_kernel<T, 6><<<N, kThreads, 0, st>>>(x, v, i, l, V); break;
+    case 7: topk_lse_kernel<T, 7><<<N, kThreads, 0, st>>>(x, v, i, l, V); break;
+    case 8: topk_lse_kernel<T, 8><<<N, kThreads, 0, st>>>(x, v, i, l, V); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return 0;
@@ -179,15 +181,12 @@ extern "C" int cvc_topk_lse(const void* logits, void* vals, void* idxs, void* ls
   if (k < 1 || k > kMaxBeams || k > V) return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!aligned16(logits)) return static_cast<int>(cudaErrorInvalidValue);
   int rc;
-  if (dtype == kF32) {
-    rc = (V % 4 == 0 && aligned16(logits))
-             ? launch_v<float, 4>(logits, vals, idxs, lse, N, V, k, st)
-             : launch_v<float, 1>(logits, vals, idxs, lse, N, V, k, st);
-  } else if (dtype == kBF16) {
-    rc = (V % 8 == 0 && aligned16(logits))
-             ? launch_v<__nv_bfloat16, 8>(logits, vals, idxs, lse, N, V, k, st)
-             : launch_v<__nv_bfloat16, 1>(logits, vals, idxs, lse, N, V, k, st);
+  if (dtype == kF32 && V % kVec<float> == 0) {
+    rc = launch<float>(logits, vals, idxs, lse, N, V, k, st);
+  } else if (dtype == kBF16 && V % kVec<__nv_bfloat16> == 0) {
+    rc = launch<__nv_bfloat16>(logits, vals, idxs, lse, N, V, k, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

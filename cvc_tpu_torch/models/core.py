@@ -184,23 +184,23 @@ def _split_wx_att(wx, E, H):
 
 
 def decoder_step(params, cfg, carry, inputs, v_enc, keys, region_mask,
-                 use_attention: bool, context_mix=None, pallas=None):
-    """One decode step.
+                 context_mix=None):
+    """One decode step with attention (the reconstruct mode without it
+    waits for the training slice).
 
     carry:  (h_att, c_att, h_lang, c_lang) each [B, H]
-    inputs: dict with pre1 [B, 4H] (W_e.emb_t + W_vg.v_global + b) and
-        ctx [B, H] (context override, reconstruct mode)
+    inputs: dict with pre1 [B, 4H] (W_e.emb_t + W_vg.v_global + b) and,
+        when context_mix is given, ctx [B, H]
     context_mix [B, 1]: per-row context source, 1 takes inputs["ctx"],
         0 the attention context.
-    pallas: None resolves `cfg.use_pallas` for the tensors' device.
-    Returns (carry', (h_lang', alpha [B, S])).
+    The kernels run when `cfg.use_pallas` resolves so for the tensors'
+    device. Returns (carry', (h_lang', alpha [B, S])).
     """
     H = cfg.rnn_size
     h_att, c_att, h_lang, c_lang = carry
     al, att, ll = params["att_lstm"], params["attention"], params["lang_lstm"]
     dtype = keys.dtype
-    use_kernels = (dispatch.use_pallas(cfg, keys.device) if pallas is None
-                   else pallas)
+    use_kernels = dispatch.use_pallas(cfg, keys.device)
     if use_kernels:
         from cvc_tpu_torch.ops.kernels import (fused_additive_attention,
                                                fused_lstm_gates)
@@ -212,22 +212,17 @@ def decoder_step(params, cfg, carry, inputs, v_enc, keys, region_mask,
     gates1 = inputs["pre1"] + h_lang @ w_hl + h_att @ al["wh"].to(dtype)
     h_att, c_att = cell(gates1, c_att)
 
-    if use_attention:
-        q = h_att @ att["wh"].to(dtype) + att["b"].to(dtype)
-        if use_kernels:
-            ctx, alpha = fused_additive_attention(
-                keys, q, att["w"].to(dtype), v_enc, region_mask)
-        else:
-            logits_ = additive_attention_scores(keys, q, att["w"].to(dtype))
-            alpha = masked_softmax(logits_, region_mask)        # [B, S] f32
-            ctx = torch.einsum("bs,bsh->bh", alpha.to(dtype), v_enc)
-        if context_mix is not None:
-            mix = context_mix.to(ctx.dtype)
-            ctx = mix * inputs["ctx"] + (1.0 - mix) * ctx
+    q = h_att @ att["wh"].to(dtype) + att["b"].to(dtype)
+    if use_kernels:
+        ctx, alpha = fused_additive_attention(
+            keys, q, att["w"].to(dtype), v_enc, region_mask)
     else:
-        ctx = inputs["ctx"]
-        alpha = torch.zeros(region_mask.shape, dtype=torch.float32,
-                            device=region_mask.device)
+        logits_ = additive_attention_scores(keys, q, att["w"].to(dtype))
+        alpha = masked_softmax(logits_, region_mask)            # [B, S] f32
+        ctx = torch.einsum("bs,bsh->bh", alpha.to(dtype), v_enc)
+    if context_mix is not None:
+        mix = context_mix.to(ctx.dtype)
+        ctx = mix * inputs["ctx"] + (1.0 - mix) * ctx
 
     wx2 = ll["wx"].to(dtype)
     gates2 = (ctx @ wx2[:H] + h_att @ wx2[H:] + h_lang @ ll["wh"].to(dtype)

@@ -62,8 +62,8 @@ def _step_logits(params, cfg, carry, prev_word, v_enc, keys, region_mask,
     _, _, w_e = core._split_wx_att(params["att_lstm"]["wx"].to(dtype), E, H)
     pre1 = emb @ w_e + vg_pre                                    # [R, 4H]
     carry, (h_lang, alpha) = core.decoder_step(
-        params, cfg, carry, {"pre1": pre1, "ctx": None},
-        v_enc=v_enc, keys=keys, region_mask=region_mask, use_attention=True)
+        params, cfg, carry, {"pre1": pre1},
+        v_enc=v_enc, keys=keys, region_mask=region_mask)
     return carry, core.logits(params, h_lang), alpha
 
 

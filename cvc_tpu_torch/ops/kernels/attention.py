@@ -36,7 +36,8 @@ def fused_additive_attention(keys, q, w, v, mask):
     (ctx [B,H] in v's type, alpha [B,S] float32).
 
     CPU tensors take `additive_attention_plain`; CUDA tensors launch the
-    kernel."""
+    kernel, which takes A and H multiples of 16 bytes of elements and
+    16-byte aligned keys and v."""
     if build.on_cpu(keys, q, w, v, mask):
         return additive_attention_plain(keys, q, w, v, mask)
     name = "fused_additive_attention"
@@ -51,6 +52,9 @@ def fused_additive_attention(keys, q, w, v, mask):
                          f"{tuple(q.shape)}, w {tuple(w.shape)}, v "
                          f"{tuple(v.shape)}, mask {tuple(mask.shape)} do not "
                          f"agree")
+    vec = build.vector_elems(keys)
+    build.check_vectors(name, {"keys": keys, "v": v},
+                        {"A": (A, vec), "H": (H, vec)})
     ctx = torch.empty((B, H), dtype=v.dtype, device=dev)
     alpha = torch.empty((B, S), dtype=torch.float32, device=dev)
     build.launch("cvc_additive_attention_fwd", keys, q, w, v, mask, ctx,

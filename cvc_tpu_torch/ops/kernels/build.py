@@ -162,6 +162,27 @@ def check_cuda(name: str, tensors: dict, dtype=None, device=None) -> torch.devic
     return device
 
 
+def vector_elems(t: torch.Tensor) -> int:
+    """Elements of t's type in one 16-byte vector, the unit every kernel
+    moves rows in."""
+    return 16 // t.element_size()
+
+
+def check_vectors(name: str, tensors: dict, widths: dict) -> None:
+    """Raise ValueError unless every tensor starts on a 16-byte boundary
+    and every width is a multiple of what the kernel needs: the kernels
+    move rows in 16-byte vectors and take no other layout. `widths` maps a
+    width's name to (value, multiple in elements)."""
+    for arg, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} does not start on a 16-byte "
+                             f"boundary")
+    for width, (value, multiple) in widths.items():
+        if value % multiple:
+            raise ValueError(f"{name}: {width}={value} is not a multiple of "
+                             f"{multiple}, the kernel's vector width")
+
+
 def dtype_code(name: str, dtype: torch.dtype) -> int:
     if dtype not in DTYPE_CODES:
         raise ValueError(f"{name}: dtype {dtype} not supported "

@@ -57,8 +57,9 @@ def fused_beam_decoder_core(gates1, c_att, keys, v_enc, region_mask,
     -> (h_att [B,K,H], c_att [B,K,H], ctx [B,K,H], alpha [B,K,S] float32).
 
     CPU tensors take `beam_core_oracle`; CUDA tensors launch the kernel,
-    which takes K <= 8 and one working type for every tensor but the
-    mask."""
+    which takes K <= 8, one working type for every tensor but the mask, H
+    a multiple of 16 bytes of elements, A a multiple of 64 bytes of
+    elements, and 16-byte aligned inputs."""
     args = (gates1, c_att, keys, v_enc, region_mask, att_wh, att_b, att_w)
     if build.on_cpu(*args):
         return beam_core_oracle(*args)
@@ -80,6 +81,11 @@ def fused_beam_decoder_core(gates1, c_att, keys, v_enc, region_mask,
                          + ", ".join(f"{tuple(a.shape)}" for a in args))
     if not 1 <= K <= MAX_BEAMS:
         raise ValueError(f"{name}: K={K} beams, the kernel takes 1..{MAX_BEAMS}")
+    vec = build.vector_elems(keys)
+    build.check_vectors(
+        name, {"gates1": gates1, "c_att": c_att, "keys": keys,
+               "v_enc": v_enc, "att_wh": att_wh},
+        {"A": (A, 4 * vec), "H": (H, vec)})
     h = torch.empty_like(c_att)
     c = torch.empty_like(c_att)
     ctx = torch.empty((B, K, H), dtype=v_enc.dtype, device=dev)

@@ -35,7 +35,9 @@ def lstm_gates_plain(gates: torch.Tensor, c: torch.Tensor):
 def fused_lstm_gates(gates: torch.Tensor, c: torch.Tensor):
     """gates [R, 4H], c [R, H] -> (h' [R, H], c' [R, H]) in c's type.
 
-    CPU tensors take `lstm_gates_plain`; CUDA tensors launch the kernel."""
+    CPU tensors take `lstm_gates_plain`; CUDA tensors launch the kernel,
+    which takes H a multiple of 16 bytes of elements and 16-byte aligned
+    inputs."""
     if build.on_cpu(gates, c):
         return lstm_gates_plain(gates, c)
     name = "fused_lstm_gates"
@@ -44,6 +46,8 @@ def fused_lstm_gates(gates: torch.Tensor, c: torch.Tensor):
         raise ValueError(f"{name}: gates {tuple(gates.shape)} and c "
                          f"{tuple(c.shape)} are not [R, 4H] and [R, H]")
     R, H = c.shape
+    build.check_vectors(name, {"gates": gates, "c": c},
+                        {"H": (H, build.vector_elems(c))})
     h = torch.empty_like(c)
     c_new = torch.empty_like(c)
     build.launch("cvc_lstm_gates_fwd", gates, c, h, c_new, R, H,

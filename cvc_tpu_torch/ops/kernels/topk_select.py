@@ -44,7 +44,8 @@ def fused_topk_lse(logits: torch.Tensor, k: int):
     idxs [N,k] int32, lse [N] float32).
 
     CPU tensors take `topk_lse_plain`; CUDA tensors launch the kernel,
-    which takes 1 <= k <= min(8, V)."""
+    which takes 1 <= k <= min(8, V), V a multiple of 16 bytes of elements
+    (the vocabulary padded to 128 is) and 16-byte aligned logits."""
     if build.on_cpu(logits):
         return topk_lse_plain(logits, k)
     name = "fused_topk_lse"
@@ -54,6 +55,8 @@ def fused_topk_lse(logits: torch.Tensor, k: int):
     N, V = logits.shape
     if not 1 <= k <= min(MAX_K, V):
         raise ValueError(f"{name}: k={k}, the kernel takes 1..min({MAX_K}, V)")
+    build.check_vectors(name, {"logits": logits},
+                        {"V": (V, build.vector_elems(logits))})
     vals = torch.empty((N, k), dtype=torch.float32, device=dev)
     idxs = torch.empty((N, k), dtype=torch.int32, device=dev)
     lse = torch.empty((N,), dtype=torch.float32, device=dev)

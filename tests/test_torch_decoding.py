@@ -22,6 +22,7 @@ import torch
 from cvc_tpu.models import core as jcore
 from cvc_tpu.models import decoding as jdec
 from cvc_tpu_torch.config import EvalConfig, ModelConfig
+from cvc_tpu_torch.models import core as tcore
 from cvc_tpu_torch.models import decoding as tdec
 from cvc_tpu_torch.models.weights import params_from_numpy
 from tests.conftest import random_batch, tiny_model_config
@@ -103,6 +104,38 @@ def test_greedy_decode_matches_jax(kernels, temperature):
     for key in ("logprobs", "alphas"):
         np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
                                    err_msg=key, **TOL)
+
+
+@pytest.mark.parametrize("kernels", [False, True])
+def test_decoder_step_context_mix_matches_jax(kernels):
+    """decoder_step with a per-row context source: rows with mix 1 take
+    inputs["ctx"], rows with mix 0 the attention context."""
+    jcfg, jparams, arrays, tparams = _setup(batch=4, seed=3)
+    B, H = 4, jcfg.rnn_size
+    rng = np.random.default_rng(3)
+    carry = [rng.normal(size=(B, H)).astype(np.float32) for _ in range(4)]
+    pre1 = rng.normal(size=(B, 4 * H)).astype(np.float32)
+    ctx = rng.normal(size=(B, H)).astype(np.float32)
+    mix = np.array([[1.0], [0.0], [1.0], [0.0]], np.float32)
+    ja = _j(arrays)
+    v_enc, keys, _ = jcore.encode_regions(
+        jparams, jcfg, ja["feats"], ja["box_geom"], ja["region_cls"],
+        ja["region_mask"])
+    want_carry, (want_h, want_alpha) = jcore.decoder_step(
+        jparams, jcfg, tuple(jnp.asarray(c) for c in carry),
+        {"pre1": jnp.asarray(pre1), "ctx": jnp.asarray(ctx)}, v_enc, keys,
+        ja["region_mask"], use_attention=True, context_mix=jnp.asarray(mix))
+    cfg, ta = _port_cfg(jcfg, kernels), _t(arrays)
+    v_enc, keys, _ = tcore.encode_regions(
+        tparams, cfg, ta["feats"], ta["box_geom"], ta["region_cls"],
+        ta["region_mask"])
+    got_carry, (got_h, got_alpha) = tcore.decoder_step(
+        tparams, cfg, tuple(torch.from_numpy(c) for c in carry),
+        {"pre1": torch.from_numpy(pre1), "ctx": torch.from_numpy(ctx)},
+        v_enc, keys, ta["region_mask"], context_mix=torch.from_numpy(mix))
+    for g, w in zip((*got_carry, got_h, got_alpha),
+                    (*want_carry, want_h, want_alpha)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
 
 
 def test_beam_select_bf16_fused_and_plain_select_agree():
