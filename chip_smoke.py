@@ -5,15 +5,21 @@
 
 1. Prints the card (`nvidia-smi` name and power limit) and builds the
    port's CUDA kernels from `cvc_tpu_torch/csrc/` (timed).
-2. Holds each kernel against its plain PyTorch version at the flagship
-   serving shapes, in bf16 and float32, with a fully masked image where
-   attention is involved, the 1280-slot video width for the beam decoder
-   core, and ties plus padded-vocabulary biases for the top-k. Times each
-   kernel, its plain version and (top-k) the library's topk + logsumexp,
-   and computes each kernel's bound: the larger of the bytes it must move
-   over 3.35 TB/s and its operations over the card's peak for the type.
-   Then checks that each wrapper raises on a width or an alignment its
-   kernel does not take.
+2. Holds each serving kernel against its plain PyTorch version at the
+   flagship serving shapes, in bf16 and float32, with a fully masked image
+   where attention is involved, the 1280-slot video width for the beam
+   decoder core, and ties plus padded-vocabulary biases for the top-k.
+   Then the training kernels (LSTM and attention backward, masked cross
+   entropy forward and backward) at the c3 training shapes (B 64 and the
+   merged scan's 128, 104 slots with 100 live and a fully masked image,
+   vocabulary 8704 with masked rows), with the allocator's memory set to
+   NaN first so that an unwritten output element fails the comparison,
+   and the attention backward's dw checked bit-equal across two launches.
+   Times each kernel, its plain version and, where one PyTorch call
+   computes the same function, that call, and computes each kernel's
+   bound: the larger of the bytes it must move over 3.35 TB/s and its
+   operations over the card's peak for the type. Then checks that each
+   wrapper raises on a width or an alignment its kernel does not take.
 3. Drives the serving path at flagship width (vocab 8704, E 512, H 1024,
    A 512, 2048-d features, 128 slots with 100 live, 20 words) with seeded
    random weights: `Captioner.build(..., beam_size=5, batch_size=64)` on
@@ -21,7 +27,15 @@
    greedy decoding. Every launch counter is set to 0 before each path
    and read after it. In float32 the kernel path's tokens are compared
    with the plain path's on the card. Reports beam-5 captions/s in bf16.
-4. Prints one `{"kernels": [...]}` line, then, as the last line,
+4. Drives the training path at the widths of
+   `configs/c3_flickr_cyclical.json` with seeded random weights and one
+   seeded random batch of 64: `make_train_step` for 5 steps in float32
+   and bf16 (losses and gradient norms finite, the loss falling), one step
+   of the merged GT-query scan, the launch counters read after every
+   step against the counts the code implies, the float32 kernel path's
+   loss, gradients and Adam step against the plain path's, and ms a step
+   of both paths with one profiled step.
+5. Prints one `{"kernels": [...]}` line, then, as the last line,
    `{"ok": true, "device": {...}}`.
 
 Exits non-zero, with no result line, on any failure, when no CUDA device
@@ -46,6 +60,9 @@ STEPS = SEQ + 1                              # L = max_len + 1 decode steps
 BATCH, BEAM = 64, 5
 N_REQUESTS, LIVE_REGIONS = 128, 100
 WINDOWS = 5                                  # timed windows of each rate
+TRAIN_BATCH, TRAIN_SLOTS = 64, 104           # configs/c3_flickr_cyclical.json
+TRAIN_STEPS = 5                              # steps on one repeated batch
+TRAIN_TIMED = 10                             # timed steps of each path
 DEVICE = "cuda"
 
 
@@ -154,6 +171,40 @@ class Smoke:
         return worst
 
 
+def n_sets(bytes_per_set: int) -> int:
+    """Input sets enough to exceed the L2 cache twice over, so that each
+    timed call finds its inputs cold."""
+    return max(1, math.ceil(2 * L2_BYTES / bytes_per_set))
+
+
+def bound(bytes_: float, ops: float, dtype: str) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    the larger of the bytes over the memory rate and the operations over
+    the type's peak."""
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def record(sm, results, key, label, dtype, fn, plain, sets, bytes_, ops, err,
+           library=None, iters=200):
+    """Times `fn`, `plain` and `library` (if any) over the input `sets`,
+    prints one `kernel {...}` line and keeps it under `key` (if any)."""
+    ms, host_ms = sm.time_ms([lambda a=a: fn(*a) for a in sets], iters)
+    plain_ms = sm.time_ms([lambda a=a: plain(*a) for a in sets[:2]],
+                          max(10, iters // 20))[0]
+    lib_ms = (sm.time_ms([lambda a=a: library(*a) for a in sets],
+                         iters)[0] if library else None)
+    b_ms, b_by = bound(bytes_, ops, dtype)
+    line = dict(case=label, dtype=dtype, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_us=b_ms * 1e3, bound_by=b_by,
+                library_ms=lib_ms, max_abs_err=err,
+                host_us_per_call=host_ms * 1e3)
+    print("kernel " + json.dumps(line), flush=True)
+    if key is not None:
+        results[key] = line
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -185,30 +236,6 @@ def kernel_phase(sm: Smoke, results: dict) -> None:
         m[3] = 0.0                               # a fully masked image
         return m
 
-    def n_sets(bytes_per_set):
-        return max(1, math.ceil(2 * L2_BYTES / bytes_per_set))
-
-    def bound(bytes_, ops, dtype):
-        t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_OPS[dtype] * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-    def record(key, label, dtype, fn, plain, sets, bytes_, ops, err,
-               library=None, iters=200):
-        ms, host_ms = sm.time_ms([lambda a=a: fn(*a) for a in sets], iters)
-        plain_ms = sm.time_ms([lambda a=a: plain(*a) for a in sets[:2]],
-                              max(10, iters // 20))[0]
-        lib_ms = (sm.time_ms([lambda a=a: library(*a) for a in sets],
-                             iters)[0] if library else None)
-        b_ms, b_by = bound(bytes_, ops, dtype)
-        line = dict(case=label, dtype=dtype, ms=ms, plain_ms=plain_ms,
-                    bound_ms=b_ms, bound_us=b_ms * 1e3, bound_by=b_by,
-                    library_ms=lib_ms, max_abs_err=err,
-                    host_us_per_call=host_ms * 1e3)
-        print("kernel " + json.dumps(line), flush=True)
-        if key is not None:
-            results[key] = line
-
     for dname, dt in dtypes.items():
         sz = torch.tensor([], dtype=dt).element_size()
 
@@ -221,7 +248,7 @@ def kernel_phase(sm: Smoke, results: dict) -> None:
         err = sm.compare(f"fused_lstm_gates {dname} R={R} H={H}",
                          lstm.fused_lstm_gates(*sets[0]),
                          lstm.lstm_gates_plain(*sets[0]), dname, ("h", "c"))
-        record("fused_lstm_gates" if dname == "bfloat16" else None,
+        record(sm, results, "fused_lstm_gates" if dname == "bfloat16" else None,
                f"R={R} H={H}", dname, lstm.fused_lstm_gates,
                lstm.lstm_gates_plain, sets, per_set, R * H * 10, err)
 
@@ -244,7 +271,7 @@ def kernel_phase(sm: Smoke, results: dict) -> None:
         sm.check(bool((got[1][3] == 0).all() and (got[0][3] == 0).all()),
                  f"fused_additive_attention {dname}: fully masked image "
                  f"gives alpha = 0 and ctx = 0")
-        record("fused_additive_attention" if dname == "bfloat16" else None,
+        record(sm, results, "fused_additive_attention" if dname == "bfloat16" else None,
                f"B={B} S={S} A={A} H={H}", dname,
                attention.fused_additive_attention,
                attention.additive_attention_plain, sets, bytes_,
@@ -280,7 +307,7 @@ def kernel_phase(sm: Smoke, results: dict) -> None:
                              {"alpha": alpha_tol(dname, live)})
             sm.check(bool((got[3][3] == 0).all() and (got[2][3] == 0).all()),
                      f"{label}: fully masked image gives alpha = 0, ctx = 0")
-            record(key if dname == "bfloat16" else None,
+            record(sm, results, key if dname == "bfloat16" else None,
                    f"B={B} K={K} S={S} A={A} H={H}", dname,
                    decoder_step.fused_beam_decoder_core,
                    decoder_step.beam_core_oracle, sets, bytes_, ops, err)
@@ -315,9 +342,182 @@ def kernel_phase(sm: Smoke, results: dict) -> None:
                 torch.logsumexp(x.float(), dim=-1)
             key = ("fused_topk_lse" if dname == "float32" and k == BEAM
                    else None)
-            record(key, f"N={N} V={V} k={k}", dname,
+            record(sm, results, key, f"N={N} V={V} k={k}", dname,
                    topk_select.fused_topk_lse, topk_select.topk_lse_plain,
                    sets, bytes_, 2 * N * V, lse_err, library=library)
+
+
+def poison(torch, dev) -> None:
+    """Leaves NaN in the memory the caching allocator hands out next, in its
+    large and its small pool, so that an output element a kernel does not
+    write shows up in the comparison."""
+    free = torch.cuda.mem_get_info(dev)[0]
+    big = torch.empty(min(free // 4, 4 << 30) // 4, device=dev)
+    small = [torch.empty(128 << 10, device=dev) for _ in range(64)]
+    for b in (big, *small):
+        b.fill_(float("nan"))
+    del big, small
+
+
+def grad_tol(dtype: str, want) -> tuple[float, float]:
+    """(abs, rel) tolerance of a gradient output: the absolute part scales
+    with the output's largest element, since gradients have no natural
+    size. float32: sums in another order and CUDA's expf/tanhf against
+    PyTorch's. bf16: the same rounding points on both sides, but a float32
+    difference at a rounding boundary flips one bf16 step (2^-8 relative)
+    in an element, and in a sum of such elements."""
+    top = float(want.float().abs().max()) if want.numel() else 0.0
+    if dtype == "float32":
+        return (1e-5 * top, 1e-4)
+    return (1e-2 * top, 2e-2)
+
+
+def train_kernel_phase(sm: Smoke, results: dict) -> None:
+    """The training slice's kernels against their plain versions at the
+    c3 training shapes (B = 64 rows, and 2B = 128 for the merged
+    GT-query scan), bf16 and float32, with the allocator poisoned first."""
+    torch = sm.torch
+    from cvc_tpu_torch.ops.kernels import attention, lstm, xent
+
+    gen = torch.Generator(device=sm.dev).manual_seed(1)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        x = torch.randn(shape, generator=gen, device=sm.dev) * scale
+        return x.to(dtype).contiguous()
+
+    for dname, dt in dtypes.items():
+        sz = torch.tensor([], dtype=dt).element_size()
+
+        # row 2: LSTM gates backward, R = 64 and 128, H = 1024
+        for R in (TRAIN_BATCH, 2 * TRAIN_BATCH):
+            H = 1024
+            mk = lambda: (randn(R, 4 * H, scale=2.0, dtype=dt),
+                          randn(R, H, dtype=dt), randn(R, H, dtype=dt),
+                          randn(R, H, dtype=dt))
+            per_set = R * H * 12 * sz
+            sets = [mk() for _ in range(n_sets(per_set))]
+            poison(torch, sm.dev)
+            got = lstm.fused_lstm_gates_bwd(*sets[0])
+            want = lstm.lstm_gates_bwd_plain(*sets[0])
+            err = sm.compare(f"fused_lstm_gates_bwd {dname} R={R} H={H}",
+                             got, want, dname, ("dgates", "dc"),
+                             {n: grad_tol(dname, w)
+                              for n, w in zip(("dgates", "dc"), want)})
+            key = ("fused_lstm_gates_bwd" if dname == "float32"
+                   and R == TRAIN_BATCH else None)
+            record(sm, results, key, f"R={R} H={H}", dname,
+                   lstm.fused_lstm_gates_bwd, lstm.lstm_gates_bwd_plain,
+                   sets, per_set, R * H * 40, err)
+
+        # row 4: attention backward, B = 64 and 128, S = 104 (100 live,
+        # one fully masked image), A = 512, H = 1024, nonzero g_alpha
+        S, A, H, live = TRAIN_SLOTS, 512, 1024, LIVE_REGIONS
+        for B in (TRAIN_BATCH, 2 * TRAIN_BATCH):
+            mask = torch.zeros((B, S), device=sm.dev)
+            mask[:, :live] = 1.0
+            mask[3] = 0.0
+
+            def mk_attn():
+                keys = randn(B, S, A, dtype=dt)
+                q = randn(B, A, scale=0.5, dtype=dt)
+                w = randn(A, scale=A ** -0.5, dtype=dt)
+                v = torch.relu(randn(B, S, H)).to(dt)
+                alpha = attention.additive_attention_plain(keys, q, w, v,
+                                                           mask)[1]
+                return (keys, q, w, v, mask, alpha, randn(B, H, dtype=dt),
+                        randn(B, S, scale=0.1))
+            n_live = int(mask.sum())
+            bytes_ = ((n_live * (A + H) + B * S * (A + H) + 2 * B * A
+                       + 2 * A + B * H) * sz + 3 * B * S * 4)
+            ops = n_live * (12 * A + 4 * H)
+            sets = [mk_attn() for _ in range(n_sets(bytes_))]
+            poison(torch, sm.dev)
+            got = attention.fused_additive_attention_bwd(*sets[0])
+            want = attention.additive_attention_bwd_plain(*sets[0])
+            names = ("dkeys", "dq", "dw", "dv")
+            label = f"fused_additive_attention_bwd {dname} B={B} S={S}"
+            err = sm.compare(label, got, want, dname, names,
+                             {n: grad_tol(dname, w)
+                              for n, w in zip(names, want)})
+            sm.check(bool((got[0][3] == 0).all() and (got[1][3] == 0).all()
+                          and (got[3][3] == 0).all()
+                          and (got[0][:, live:] == 0).all()
+                          and (got[3][:, live:] == 0).all()),
+                     f"{label}: dkeys, dq, dv are 0 on the fully masked "
+                     f"image and on the padding slots")
+            again = attention.fused_additive_attention_bwd(*sets[0])
+            sm.check(bool(torch.equal(got[2], again[2])),
+                     f"{label}: dw bit-equal across two launches")
+            key = ("fused_additive_attention_bwd" if dname == "float32"
+                   and B == TRAIN_BATCH else None)
+            record(sm, results, key, f"B={B} S={S} A={A} H={H}", dname,
+                   attention.fused_additive_attention_bwd,
+                   attention.additive_attention_bwd_plain, sets, bytes_,
+                   ops, err)
+
+        # rows 5 and 6: masked cross entropy, N = 64 * 21 and 128 * 21,
+        # V = 8704; about 40% of the rows masked (steps after a caption's
+        # end). The training path feeds float32 logits.
+        V = 8704
+        for N in (TRAIN_BATCH * STEPS, 2 * TRAIN_BATCH * STEPS):
+            def mk_xent():
+                x = randn(N, V, scale=2.0, dtype=dt)
+                tgt = torch.randint(0, V, (N,), generator=gen,
+                                    device=sm.dev, dtype=torch.int32)
+                m = (torch.rand((N,), generator=gen, device=sm.dev)
+                     < 0.6).float()
+                return x, tgt, m
+            sets = [mk_xent() for _ in range(n_sets(N * V * sz))]
+            # rows the kernels read: the live rows of an average set
+            n_live = sum(int((a[2] != 0).sum()) for a in sets) / len(sets)
+            fwd_bytes = n_live * V * sz + N * 12
+            bwd_bytes = (n_live + N) * V * sz + N * 8 + 4
+            g = torch.tensor([0.37], device=sm.dev)
+            bsets = [(*a, g) for a in sets]
+            label = f"fused_masked_xent {dname} N={N} V={V}"
+            poison(torch, sm.dev)
+            got = xent.fused_masked_xent_rows(*sets[0])
+            want = xent.masked_xent_rows_plain(*sets[0])
+            err_f = sm.compare(label, (got,), (want,), dname, ("nll",),
+                               {"nll": (1e-4, 1e-5)})
+            poison(torch, sm.dev)
+            got = xent.fused_masked_xent_bwd(*bsets[0])
+            want = xent.masked_xent_bwd_plain(*bsets[0])
+            err_b = sm.compare(label + " bwd", (got,), (want,), dname,
+                               ("dlogits",),
+                               {"dlogits": grad_tol(dname, want)})
+            sm.check(bool((got[sets[0][2] == 0] == 0).all()),
+                     f"{label}: masked rows give a zero dlogits row")
+            kept = dname == "float32" and N == TRAIN_BATCH * STEPS
+
+            def lib_fwd(x, t, m):
+                return torch.nn.functional.cross_entropy(
+                    x, t.long(), reduction="none") * m
+
+            graphs = {}
+
+            def lib_bwd(x, t, m, g_):
+                # the autograd backward of lib_fwd's sum, graph built once
+                # per input set and not timed
+                key_ = x.data_ptr()
+                if key_ not in graphs:
+                    xr = x.detach().requires_grad_(True)
+                    graphs[key_] = (xr, (lib_fwd(xr, t, m) * g_).sum())
+                xr, loss = graphs[key_]
+                return torch.autograd.grad(loss, xr, retain_graph=True)
+            for a in bsets:
+                lib_bwd(*a)
+            record(sm, results, "fused_masked_xent" if kept else None,
+                   f"N={N} V={V} ({n_live:.0f} rows live)", dname,
+                   xent.fused_masked_xent_rows, xent.masked_xent_rows_plain,
+                   sets, fwd_bytes, n_live * V * 4, err_f, library=lib_fwd)
+            record(sm, results, "fused_masked_xent_bwd" if kept else None,
+                   f"N={N} V={V} ({n_live:.0f} rows live) bwd", dname,
+                   xent.fused_masked_xent_bwd, xent.masked_xent_bwd_plain,
+                   bsets, bwd_bytes, n_live * V * 6, err_b,
+                   library=lib_bwd)
+            graphs.clear()
 
 
 def reject_phase(sm: Smoke) -> None:
@@ -325,7 +525,7 @@ def reject_phase(sm: Smoke) -> None:
     does not take: the kernels move rows in 16-byte vectors only."""
     torch = sm.torch
     from cvc_tpu_torch.ops.kernels import attention, decoder_step, lstm
-    from cvc_tpu_torch.ops.kernels import topk_select
+    from cvc_tpu_torch.ops.kernels import topk_select, xent
 
     def z(*shape):
         return torch.zeros(shape, device=sm.dev)
@@ -336,6 +536,7 @@ def reject_phase(sm: Smoke) -> None:
 
     B, K, S, A, H = 2, 3, 8, 64, 32
     m = z(B, S)
+    tgt = torch.zeros(4, dtype=torch.int32, device=sm.dev)
 
     def core(a=A, keys=None):
         return decoder_step.fused_beam_decoder_core(
@@ -360,6 +561,23 @@ def reject_phase(sm: Smoke) -> None:
             z(4, 131), 2),
         "fused_topk_lse misaligned logits": lambda: (
             topk_select.fused_topk_lse(off(4, 128), 2)),
+        "fused_lstm_gates_bwd H=18": lambda: lstm.fused_lstm_gates_bwd(
+            z(4, 72), z(4, 18), z(4, 18), z(4, 18)),
+        "fused_lstm_gates_bwd misaligned gh": lambda: (
+            lstm.fused_lstm_gates_bwd(z(4, 4 * H), z(4, H), off(4, H),
+                                      z(4, H))),
+        "fused_additive_attention_bwd A=18": lambda: (
+            attention.fused_additive_attention_bwd(
+                z(B, S, 18), z(B, 18), z(18), z(B, S, H), m, m, z(B, H))),
+        "fused_additive_attention_bwd misaligned v": lambda: (
+            attention.fused_additive_attention_bwd(
+                z(B, S, A), z(B, A), z(A), off(B, S, H), m, m, z(B, H))),
+        "fused_masked_xent V=131": lambda: xent.fused_masked_xent_rows(
+            z(4, 131), tgt, z(4)),
+        "fused_masked_xent misaligned logits": lambda: (
+            xent.fused_masked_xent_rows(off(4, 128), tgt, z(4))),
+        "fused_masked_xent_bwd V=131": lambda: xent.fused_masked_xent_bwd(
+            z(4, 131), tgt, z(4), z(1)),
     }
     for label, call in cases.items():
         try:
@@ -435,7 +653,7 @@ def serving_phase(sm: Smoke, smi: str, counts: dict) -> None:
         got = launch_counts()
         for name, n in got.items():
             counts[name] = counts.get(name, 0) + n
-        want = {k: v * n_batches for k, v in expect.items()}
+        want = {k: expect.get(k, 0) * n_batches for k in got}
         sm.check(got == want, f"{label} launches {got} (want {want})")
         valid(out, label)
         return out
@@ -481,8 +699,6 @@ def throughput(sm: Smoke, cap, reqs, smi: str) -> None:
     response included) and through the decoder alone on packed batches,
     then one profiled decode: the card's busy share and its top kernels."""
     torch = sm.torch
-    from torch.profiler import ProfilerActivity, profile
-
     many = reqs * 2
     cap.caption(reqs[:BATCH], pipeline_depth=2)                # warm
     times = []
@@ -516,11 +732,22 @@ def throughput(sm: Smoke, cap, reqs, smi: str) -> None:
           f"{statistics.median(rates):.1f}, range {rates[0]:.1f}-"
           f"{rates[-1]:.1f}) on {smi}", flush=True)
 
+    profile_report(sm, lambda: cap.decoder(cap.params, arrays),
+                   f"one beam-5 bf16 decode of {BATCH}")
+
+
+def profile_report(sm: Smoke, fn, label: str, top_n: int = 8) -> None:
+    """Runs fn once under torch.profiler and prints the card's busy time
+    (the union of kernel intervals) against the wall time, the number of
+    kernel launches and the top kernels by device time."""
+    torch = sm.torch
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        cap.decoder(cap.params, arrays)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events()
@@ -540,11 +767,10 @@ def throughput(sm: Smoke, cap, reqs, smi: str) -> None:
     for e in kernels:
         t, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    print(f"profile: one beam-5 bf16 decode of {BATCH}: {wall_us:.0f} us "
-          f"wall under the profiler, kernels busy {busy:.0f} us "
-          f"({busy / wall_us:.3f} of wall), {len(kernels)} kernel launches",
-          flush=True)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top_n]
+    print(f"profile: {label}: {wall_us:.0f} us wall under the profiler, "
+          f"kernels busy {busy:.0f} us ({busy / wall_us:.3f} of wall), "
+          f"{len(kernels)} kernel launches", flush=True)
     for name, (t, n) in top:
         print(f"profile:   {t:9.1f} us  {n:4d} x  {name[:90]}", flush=True)
 
@@ -580,12 +806,253 @@ def compare_paths(sm: Smoke, cap_k, cap_p, reqs, label):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5: the training path
+# ---------------------------------------------------------------------------
+
+# kernel launches of one train step, predicted from the code: the unfused
+# argmax cycle runs 2 LSTM cells x 21 steps x 2 scans, attention in the
+# decode scan only (the reconstruct scan takes v̂ as its context), and one
+# cross entropy each for the decode and reconstruct losses; each backward
+# kernel runs once per forward launch. The merged GT-query scan runs one
+# scan over 2B rows.
+ARGMAX_LAUNCHES = {"fused_lstm_gates": 4 * STEPS,
+                   "fused_lstm_gates_bwd": 4 * STEPS,
+                   "fused_additive_attention": STEPS,
+                   "fused_additive_attention_bwd": STEPS,
+                   "fused_masked_xent": 2, "fused_masked_xent_bwd": 2}
+GT_LAUNCHES = dict(ARGMAX_LAUNCHES, fused_lstm_gates=2 * STEPS,
+                   fused_lstm_gates_bwd=2 * STEPS)
+STEPS_PER_EPOCH = 29000 // TRAIN_BATCH      # Flickr30k's training images
+
+
+def c3_config():
+    """configs/c3_flickr_cyclical.json, the repo's training configuration:
+    vocab 8704, E 512, H 1024, A 512, 2048-d features, 104 slots, 20
+    words, 512 classes of width 128, float32, dropout 0.5; Adam at 5e-4
+    with global-norm clip 0.1, argmax localizer queries."""
+    from pathlib import Path
+
+    from cvc_tpu_torch.config import Config
+    path = Path(__file__).resolve().parent / "configs" / \
+        "c3_flickr_cyclical.json"
+    return Config.from_json(path.read_text())
+
+
+def train_batch(torch, cfg, seed: int) -> dict:
+    """One seeded random batch of TRAIN_BATCH images at the config's
+    widths, made with numpy as bench.py makes its batches: 100 live region
+    slots of 104, and captions of 8 to 20 words (so the steps after a
+    caption's end are masked out of the losses)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    B, S, T = TRAIN_BATCH, cfg.total_regions, cfg.max_tokens
+    tokens = np.zeros((B, T), np.int32)
+    token_mask = np.zeros((B, T), np.float32)
+    tokens[:, 0] = 1                                        # BOS
+    for i, n in enumerate(rng.integers(8, cfg.seq_length + 1, size=B)):
+        tokens[i, 1:1 + n] = rng.integers(4, cfg.vocab_size, size=n)
+        tokens[i, 1 + n] = 2                                # EOS
+        token_mask[i, 1:2 + n] = 1.0
+    live = (np.arange(S) < LIVE_REGIONS).astype(np.float32)
+    arrays = dict(
+        feats=rng.normal(size=(B, S, cfg.feat_dim)).astype(np.float32),
+        box_geom=rng.uniform(size=(B, S, 5)).astype(np.float32),
+        region_cls=rng.integers(0, cfg.num_classes, size=(B, S)
+                                ).astype(np.int32),
+        region_mask=np.broadcast_to(live, (B, S)).copy(),
+        tokens=tokens, token_mask=token_mask)
+    return {k: torch.from_numpy(v).to(DEVICE) for k, v in arrays.items()}
+
+
+def train_phase(sm: Smoke, smi: str, counts: dict) -> None:
+    torch = sm.torch
+    import copy
+    import dataclasses
+
+    from cvc_tpu_torch.models import core
+    from cvc_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from cvc_tpu_torch.training.optimizer import make_optimizer
+    from cvc_tpu_torch.training.step import make_train_step
+    from cvc_tpu_torch.training.train_state import TrainState
+
+    t0 = time.perf_counter()
+    c3 = c3_config()
+    base, tc = c3.model, c3.train
+    params0 = core.init_params(torch.Generator().manual_seed(0), base, DEVICE)
+    arrays = train_batch(torch, base, seed=2)
+    print(f"train: c3 config, {core.param_count(params0)} parameters, "
+          f"B={TRAIN_BATCH}, S={base.total_regions}, L={STEPS}, set-up "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def new_state():
+        return TrainState.create(copy.deepcopy(params0),
+                                 make_optimizer(tc, STEPS_PER_EPOCH))
+
+    def run(cfg, label, n_steps, expect):
+        """n_steps on the repeated batch, the counters set to 0 before each
+        step and read after it; returns the losses."""
+        state = new_state()
+        step = make_train_step(cfg, tc, STEPS_PER_EPOCH, device=DEVICE)
+        gen = torch.Generator(device=sm.dev).manual_seed(3)
+        losses, norms, per_step = [], [], []
+        for _ in range(n_steps):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            m = step(state, arrays, gen)
+            torch.cuda.synchronize()
+            got = launch_counts()
+            per_step.append(got)
+            for k, n in got.items():
+                counts[k] = counts.get(k, 0) + n
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        want = {k: expect.get(k, 0) for k in per_step[0]}
+        sm.check(all(c == want for c in per_step),
+                 f"{label}: launches per step {per_step[0]} (want {want})")
+        sm.check(all(math.isfinite(x) for x in losses + norms),
+                 f"{label}: {n_steps} steps, loss {['%.4f' % x for x in losses]}"
+                 f", grad_norm {['%.4f' % x for x in norms]}, all finite")
+        return losses
+
+    for dname in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dname)
+        losses = run(cfg, f"train {dname} kernel path", TRAIN_STEPS,
+                     ARGMAX_LAUNCHES)
+        sm.check(losses[-1] < losses[0],
+                 f"train {dname} kernel path: loss falls over "
+                 f"{TRAIN_STEPS} steps ({losses[0]:.4f} -> {losses[-1]:.4f})")
+    run(dataclasses.replace(base, cycle_localize_gt=True),
+        "train float32 merged GT-query scan (2B rows)", 1, GT_LAUNCHES)
+    run(dataclasses.replace(base, use_pallas=False),
+        "train float32 plain path", 1, {})
+
+    compare_train_paths(sm, base, tc, params0, arrays, new_state)
+
+    # ms a step: host clock around synchronized steps, after one warm step;
+    # the step is bound by the host's launches, so its time spreads widely
+    for dname in ("float32", "bfloat16"):
+        for path, kernels in (("kernel", True), ("plain", False)):
+            cfg = dataclasses.replace(base, dtype=dname, use_pallas=kernels)
+            state = new_state()
+            step = make_train_step(cfg, tc, STEPS_PER_EPOCH, device=DEVICE)
+            gen = torch.Generator(device=sm.dev).manual_seed(4)
+            step(state, arrays, gen)
+            times = []
+            for _ in range(TRAIN_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(state, arrays, gen)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            print(f"train step {dname} {path} path B={TRAIN_BATCH}: "
+                  f"{statistics.median(times):.2f} ms a step (median of "
+                  f"{len(times)}; mean {statistics.mean(times):.2f}, range "
+                  f"{min(times):.2f}-{max(times):.2f}) on {smi}", flush=True)
+            if dname == "float32" and kernels:
+                profile_report(sm, lambda: step(state, arrays, gen),
+                               f"one float32 kernel-path train step of "
+                               f"{TRAIN_BATCH}", top_n=10)
+
+
+def compare_train_paths(sm: Smoke, base, tc, params0, arrays, new_state):
+    """float32, dropout off: the kernel path's loss, every parameter's
+    gradient and the parameters after one Adam step against the plain
+    path's, same parameters and batch."""
+    torch = sm.torch
+    import copy
+    import dataclasses
+
+    from cvc_tpu_torch.models.cyclical import cyclical_loss
+    from cvc_tpu_torch.training.step import make_train_step
+    from cvc_tpu_torch.training.train_state import tree_items
+
+    cfgs = {"kernel": dataclasses.replace(base, drop_prob_lm=0.0,
+                                          use_pallas=True),
+            "plain": dataclasses.replace(base, drop_prob_lm=0.0,
+                                         use_pallas=False)}
+    losses, grads = {}, {}
+    for name, cfg in cfgs.items():
+        params = copy.deepcopy(params0)
+        for _, x in tree_items(params):
+            x.requires_grad_(True)
+        loss, _ = cyclical_loss(params, cfg, arrays)
+        loss.backward()
+        losses[name] = float(loss.detach())
+        grads[name] = {k: x.grad for k, x in tree_items(params)}
+    rel = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
+    sm.check(rel <= 1e-5, f"train float32 kernel vs plain path on the card: "
+                          f"loss {losses['kernel']:.6f} vs "
+                          f"{losses['plain']:.6f}, rel err {rel:.2e} "
+                          f"(want <= 1e-5)")
+    # gradients: relative L2 error <= 1e-4 and max abs error <= 1e-3 of the
+    # largest element, for every parameter; none missing or all zero where
+    # the plain one is not
+    worst_l2 = worst_max = 0.0
+    bad = []
+    for k, gp in grads["plain"].items():
+        gk = grads["kernel"][k]
+        if gk is None or gp is None:
+            bad.append(f"{k}: missing")
+            continue
+        top = float(gp.abs().max())
+        if top > 0 and float(gk.abs().max()) == 0:
+            bad.append(f"{k}: all zero")
+        d = gk - gp
+        l2 = float(d.norm() / gp.norm()) if top > 0 else float(d.norm())
+        mx = float(d.abs().max()) / top if top > 0 else float(d.abs().max())
+        worst_l2, worst_max = max(worst_l2, l2), max(worst_max, mx)
+        if not (l2 <= 1e-4 and mx <= 1e-3):
+            bad.append(f"{k}: rel L2 {l2:.2e}, max {mx:.2e}")
+    sm.check(not bad, f"train float32 kernel vs plain path: "
+                      f"{len(grads['plain'])} gradients, worst rel L2 err "
+                      f"{worst_l2:.2e} (want <= 1e-4), worst max abs err "
+                      f"{worst_max:.2e} of the largest element (want <= "
+                      f"1e-3){'; ' + '; '.join(bad) if bad else ''}")
+    # one Adam step each: parameters within 1e-6 + 1e-5 |p|, except where
+    # the two paths' gradients disagree in more than half their size (the
+    # step's sign there, lr * sign(g), is not set by float32 sums); those
+    # elements are counted and must be under 1 in 10^4
+    states = {}
+    for name, cfg in cfgs.items():
+        states[name] = new_state()
+        step = make_train_step(cfg, tc, STEPS_PER_EPOCH, device=DEVICE)
+        step(states[name], arrays, None)
+    n_el = n_free = 0
+    worst = 0.0
+    bad = []
+    pk = dict(tree_items(states["kernel"].params))
+    for k, p in tree_items(states["plain"].params):
+        d = (pk[k] - p).abs()
+        g_p, g_k = grads["plain"][k], grads["kernel"][k]
+        free = (g_k - g_p).abs() > 0.5 * g_p.abs()
+        ok = (d <= 1e-6 + 1e-5 * p.abs()) | free
+        n_el += p.numel()
+        n_free += int(free.sum())
+        worst = max(worst, float(torch.where(free, 0.0, d).max()))
+        if not bool(ok.all()):
+            bad.append(k)
+    sm.check(not bad and n_free * 1e4 < n_el,
+             f"train float32 kernel vs plain path: parameters after one "
+             f"Adam step, max abs err {worst:.2e} (want <= 1e-6 + 1e-5 |p|) "
+             f"over {n_el} elements, {n_free} with an undetermined step "
+             f"sign (want < 1e-4 of them){'; ' + ', '.join(bad) if bad else ''}")
+
+
+# ---------------------------------------------------------------------------
 
 KERNEL_ROWS = [
     ("fused_lstm_gates", "cvc_tpu_torch/csrc/lstm.cu",
      "cvc_tpu/ops/pallas/lstm.py:25"),
+    ("fused_lstm_gates_bwd", "cvc_tpu_torch/csrc/lstm.cu",
+     "cvc_tpu/ops/pallas/lstm.py:38"),
     ("fused_additive_attention", "cvc_tpu_torch/csrc/attention.cu",
      "cvc_tpu/ops/pallas/attention.py:32"),
+    ("fused_additive_attention_bwd", "cvc_tpu_torch/csrc/attention_bwd.cu",
+     "cvc_tpu/ops/pallas/attention.py:131"),
+    ("fused_masked_xent", "cvc_tpu_torch/csrc/xent.cu",
+     "cvc_tpu/ops/pallas/xent.py:24"),
+    ("fused_masked_xent_bwd", "cvc_tpu_torch/csrc/xent.cu",
+     "cvc_tpu/ops/pallas/xent.py:37"),
     ("fused_beam_decoder_core", "cvc_tpu_torch/csrc/decoder_step.cu",
      "cvc_tpu/ops/pallas/decoder_step.py:43"),
     ("fused_topk_lse", "cvc_tpu_torch/csrc/topk_select.cu",
@@ -622,9 +1089,11 @@ def main() -> int:
 
     results: dict = {}
     kernel_phase(sm, results)
+    train_kernel_phase(sm, results)
     reject_phase(sm)
     counts: dict = {}
     serving_phase(sm, smi, counts)
+    train_phase(sm, smi, counts)
 
     kernels = []
     for name, source, replaces in KERNEL_ROWS:
@@ -636,7 +1105,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
         sm.check(counts.get(name, 0) > 0,
-                 f"{name} launched on the serving path")
+                 f"{name} launched on the serving or training path")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

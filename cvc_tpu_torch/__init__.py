@@ -5,8 +5,10 @@ layout (weights cross as the flat `a/b/c` npz), and replaces each Pallas
 kernel on its path with a CUDA kernel written for Hopper (`csrc/`), built
 with nvcc at first use. It imports nothing from `cvc_tpu`.
 
-This slice serves: `serving.Captioner` with beam search and greedy decoding.
-Entry points run on CUDA unless the caller passes device="cpu".
+Ported so far: serving (`serving.Captioner` with beam search and greedy
+decoding) and the cyclical train step (`training.step.make_train_step`:
+decode -> localize -> reconstruct -> masked XE -> clip + Adam). Entry points
+run on CUDA unless the caller passes device="cpu".
 """
 
 __version__ = "0.1.0"

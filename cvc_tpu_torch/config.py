@@ -2,9 +2,9 @@
 evaluation dataclasses (`cvc_tpu/config.py`), with the same field names and
 defaults, so a `config.json` that `cvc_tpu` wrote loads here unchanged.
 
-Only what serving reads is typed: `ModelConfig` and `EvalConfig`. The data
-and train sections of a `config.json` are kept as plain dicts. The
-reference-style command line belongs to the training slice.
+`ModelConfig`, `EvalConfig` and `TrainConfig` are typed. The data section
+of a `config.json` is kept as a plain dict. The reference-style command
+line waits for the training loop's slice.
 """
 
 from __future__ import annotations
@@ -82,11 +82,59 @@ class EvalConfig:
 
 
 @dataclass
+class TrainConfig:
+    """The optimizer, schedule and cycle settings of training. Fields the
+    port does not read yet (the loop, scheduled sampling, SCST,
+    checkpoints, multi-device) are kept so every `cvc_tpu` config
+    loads."""
+
+    learning_rate: float = 5e-4       # reference: --learning_rate
+    optimizer: str = "adam"
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-8
+    weight_decay: float = 0.0
+    grad_clip: float = 0.1            # clip by global norm
+    learning_rate_decay_start: int = 1      # epoch (reference flag name)
+    learning_rate_decay_every: int = 3      # epochs
+    learning_rate_decay_rate: float = 0.8
+    max_epochs: int = 30
+    enable_cycle: bool = True         # decode -> localize -> reconstruct
+    cycle_after: int = 0              # the cycle only from this epoch
+    cycle_gt_until: int = 0           # epochs in [cycle_after, this) query
+    #                                   the localizer with the GT words
+    cycle_weight_anneal_to: float = -1.0   # >= 0: reconstruction weight
+    #                                   after cycle_weight_anneal_after
+    cycle_weight_anneal_after: int = 0
+    scheduled_sampling_start: int = -1        # epoch; -1 = off
+    scheduled_sampling_increase_every: int = 5
+    scheduled_sampling_increase_prob: float = 0.05
+    scheduled_sampling_max_prob: float = 0.25
+    self_critical_after: int = -1             # epoch; -1 = off
+    scst_xe_weight: float = 0.0
+    checkpoint_path: str = "save"
+    start_from: Optional[str] = None
+    import_torch: Optional[str] = None
+    auto_resume: bool = True
+    save_checkpoint_every: int = 1    # epochs
+    val_every_epoch: int = 1
+    language_eval: bool = True
+    grounding_eval: bool = True
+    cycle_probes: bool = False
+    beam_size: int = 1                # decode config used during validation
+    losses_log_every: int = 25        # steps
+    seed: int = 123
+    num_devices: int = 0              # 0 = all visible devices
+    model_axis: int = 1
+    donate_state: bool = True
+
+
+@dataclass
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
     data: dict = field(default_factory=dict)    # untyped until ported
-    train: dict = field(default_factory=dict)   # untyped until ported
+    train: TrainConfig = field(default_factory=TrainConfig)
     id: str = "cvc"
 
     @staticmethod
@@ -96,6 +144,6 @@ class Config:
             model=ModelConfig(**raw.get("model", {})),
             eval=EvalConfig(**raw.get("eval", {})),
             data=dict(raw.get("data", {})),
-            train=dict(raw.get("train", {})),
+            train=TrainConfig(**raw.get("train", {})),
             id=raw.get("id", "cvc"),
         )

@@ -1,10 +1,13 @@
-"""Model core for generation: region encoder and the Up-Down
-attention-LSTM decoder step (the port of `cvc_tpu/models/core.py`).
+"""Model core: region encoder, the Up-Down attention-LSTM decoder step,
+the teacher-forced decode and the localizer (the port of
+`cvc_tpu/models/core.py`).
 
 Parameters are the JAX package's tree (see models/weights.py). Every
 function casts weights to the compute type with `.to(dtype)`, as the JAX
-code does with `.astype`; `cast_params` does those casts once up front so
-that the per-step casts are no-ops.
+code does with `.astype`. For serving, `cast_params` does those casts once
+up front so that the per-step casts are no-ops; training keeps float32
+leaves that require grad, and `decode` casts the decoder's weights once in
+the graph, before its step loop.
 
 Step recurrence:
     x1_t  = [h_lang_{t-1}, v_global, E[w_t]]
@@ -183,24 +186,43 @@ def _split_wx_att(wx, E, H):
     return wx[:H], wx[H:2 * H], wx[2 * H:2 * H + E]
 
 
+def step_weights(params, cfg, dtype: torch.dtype) -> dict:
+    """The decoder step's weights in the compute type, split as the step
+    uses them. `decode` forms them once for all its steps, so that
+    autograd sums each slice's per-step gradients before it forms the
+    whole matrix's gradient once."""
+    H = cfg.rnn_size
+    al, att, ll = params["att_lstm"], params["attention"], params["lang_lstm"]
+    w_hl, _, _ = _split_wx_att(al["wx"].to(dtype), cfg.input_encoding_size, H)
+    wx2 = ll["wx"].to(dtype)
+    return {"w_hl": w_hl, "w_ah": al["wh"].to(dtype),
+            "w_qh": att["wh"].to(dtype), "b_q": att["b"].to(dtype),
+            "w_v": att["w"].to(dtype), "w_cx": wx2[:H], "w_ax": wx2[H:],
+            "w_lh": ll["wh"].to(dtype), "b_l": ll["b"].to(dtype)}
+
+
 def decoder_step(params, cfg, carry, inputs, v_enc, keys, region_mask,
-                 context_mix=None):
-    """One decode step with attention (the reconstruct mode without it
-    waits for the training slice).
+                 context_mix=None, use_attention: bool = True, kernels=None,
+                 weights=None):
+    """One decode step.
 
     carry:  (h_att, c_att, h_lang, c_lang) each [B, H]
     inputs: dict with pre1 [B, 4H] (W_e.emb_t + W_vg.v_global + b) and,
-        when context_mix is given, ctx [B, H]
+        in reconstruct mode or when context_mix is given, ctx [B, H]
     context_mix [B, 1]: per-row context source, 1 takes inputs["ctx"],
         0 the attention context.
-    The kernels run when `cfg.use_pallas` resolves so for the tensors'
-    device. Returns (carry', (h_lang', alpha [B, S])).
+    use_attention False is the reconstruct mode: the context is
+        inputs["ctx"] (the localized feature v̂) and alpha is zero.
+    kernels: whether the kernels run; None resolves `cfg.use_pallas` for
+        the tensors' device.
+    weights: `step_weights(params, cfg, keys.dtype)`, formed here when
+        None. Returns (carry', (h_lang', alpha [B, S])).
     """
-    H = cfg.rnn_size
     h_att, c_att, h_lang, c_lang = carry
-    al, att, ll = params["att_lstm"], params["attention"], params["lang_lstm"]
     dtype = keys.dtype
-    use_kernels = dispatch.use_pallas(cfg, keys.device)
+    w = step_weights(params, cfg, dtype) if weights is None else weights
+    use_kernels = (dispatch.use_pallas(cfg, keys.device) if kernels is None
+                   else kernels)
     if use_kernels:
         from cvc_tpu_torch.ops.kernels import (fused_additive_attention,
                                                fused_lstm_gates)
@@ -208,27 +230,125 @@ def decoder_step(params, cfg, carry, inputs, v_enc, keys, region_mask,
     else:
         cell = lstm_cell
 
-    w_hl, _, _ = _split_wx_att(al["wx"].to(dtype), cfg.input_encoding_size, H)
-    gates1 = inputs["pre1"] + h_lang @ w_hl + h_att @ al["wh"].to(dtype)
+    gates1 = inputs["pre1"] + h_lang @ w["w_hl"] + h_att @ w["w_ah"]
     h_att, c_att = cell(gates1, c_att)
 
-    q = h_att @ att["wh"].to(dtype) + att["b"].to(dtype)
-    if use_kernels:
-        ctx, alpha = fused_additive_attention(
-            keys, q, att["w"].to(dtype), v_enc, region_mask)
+    if use_attention:
+        q = h_att @ w["w_qh"] + w["b_q"]
+        if use_kernels:
+            ctx, alpha = fused_additive_attention(
+                keys, q, w["w_v"], v_enc, region_mask)
+        else:
+            logits_ = additive_attention_scores(keys, q, w["w_v"])
+            alpha = masked_softmax(logits_, region_mask)        # [B, S] f32
+            ctx = torch.einsum("bs,bsh->bh", alpha.to(dtype), v_enc)
+        if context_mix is not None:
+            mix = context_mix.to(ctx.dtype)
+            ctx = mix * inputs["ctx"] + (1.0 - mix) * ctx
     else:
-        logits_ = additive_attention_scores(keys, q, att["w"].to(dtype))
-        alpha = masked_softmax(logits_, region_mask)            # [B, S] f32
-        ctx = torch.einsum("bs,bsh->bh", alpha.to(dtype), v_enc)
-    if context_mix is not None:
-        mix = context_mix.to(ctx.dtype)
-        ctx = mix * inputs["ctx"] + (1.0 - mix) * ctx
+        ctx = inputs["ctx"]
+        alpha = torch.zeros(region_mask.shape, dtype=torch.float32,
+                            device=keys.device)
 
-    wx2 = ll["wx"].to(dtype)
-    gates2 = (ctx @ wx2[:H] + h_att @ wx2[H:] + h_lang @ ll["wh"].to(dtype)
-              + ll["b"].to(dtype))
+    gates2 = (ctx @ w["w_cx"] + h_att @ w["w_ax"] + h_lang @ w["w_lh"]
+              + w["b_l"])
     h_lang, c_lang = cell(gates2, c_lang)
     return (h_att, c_att, h_lang, c_lang), (h_lang, alpha)
+
+
+def precompute_pre1(params, cfg, emb_seq, v_global):
+    """The non-recurrent att-LSTM gate terms of every step at once:
+    emb_seq [B, L, E], v_global [B, H] -> pre1 [B, L, 4H]."""
+    H, E = cfg.rnn_size, cfg.input_encoding_size
+    al = params["att_lstm"]
+    dtype = v_global.dtype
+    _, w_vg, w_e = _split_wx_att(al["wx"].to(dtype), E, H)
+    pre = emb_seq.to(dtype) @ w_e + (v_global @ w_vg)[:, None, :]
+    return pre + al["b"].to(dtype)
+
+
+def decode(params, cfg, v_enc, keys, v_global, emb_seq, region_mask,
+           context_override=None, context_mix=None):
+    """Teacher-forced decode over L steps, one `decoder_step` a step.
+
+    emb_seq [B, L, E]: the embedded input words (BOS..w_{L-1}).
+    context_override [B, L, H]: reconstruct mode, the per-step localized
+        features v̂_t replace the attention context.
+    context_mix [B, 1]: with context_override, the merged decode +
+        reconstruct scan: rows with mix 0 attend, rows with mix 1 take v̂.
+    The kernels run when `use_pallas_train_scan` resolves so for the
+    tensors' device. The decoder's weights are cast and split once, before
+    the loop, and the per-step inputs taken with `unbind`: autograd then
+    sums the steps' gradients of each piece and forms each whole tensor's
+    gradient once, instead of once a step.
+    Returns (h_seq [B, L, H], alphas [B, L, S] float32, final carry).
+    """
+    B, L, _ = emb_seq.shape
+    dtype = keys.dtype
+    pre1 = precompute_pre1(params, cfg, emb_seq, v_global)     # [B, L, 4H]
+    use_attention = context_override is None or context_mix is not None
+    pre1_t = pre1.unbind(1)
+    ctx_t = (None if context_override is None
+             else context_override.to(dtype).unbind(1))
+    kernels = dispatch.use_pallas_train_scan(cfg, keys.device)
+    weights = step_weights(params, cfg, dtype)
+    carry = initial_state(B, cfg.rnn_size, dtype, keys.device)
+    hs, alphas = [], []
+    for t in range(L):
+        inputs = {"pre1": pre1_t[t]}
+        if ctx_t is not None:
+            inputs["ctx"] = ctx_t[t]
+        carry, (h, alpha) = decoder_step(
+            params, cfg, carry, inputs, v_enc, keys, region_mask,
+            context_mix=context_mix, use_attention=use_attention,
+            kernels=kernels, weights=weights)
+        hs.append(h)
+        alphas.append(alpha)
+    return torch.stack(hs, 1), torch.stack(alphas, 1), carry
+
+
+# ---------------------------------------------------------------------------
+# Localizer (the cyclical method's second stage)
+# ---------------------------------------------------------------------------
+
+def localize(params, cfg, word_ids, v_enc, region_mask):
+    """Word-conditioned region attention: for each query word, beta over
+    the regions and the localized feature v̂ = sum beta V. word_ids [B, L]
+    (integers: no gradient flows back through them). Plain PyTorch: the
+    JAX package has no kernel here.
+    Returns (beta [B, L, S] float32, v_hat [B, L, H])."""
+    loc = params["localizer"]
+    dtype = v_enc.dtype
+    q_emb = embed_tokens(params, word_ids, dtype)                  # [B,L,E]
+    q = q_emb @ loc["wq"].to(dtype) + loc["b"].to(dtype)           # [B,L,A]
+    k = v_enc @ loc["wv"].to(dtype)                                # [B,S,A]
+    e = torch.tanh(k[:, None, :, :] + q[:, :, None, :])            # [B,L,S,A]
+    scores = torch.einsum("blsa,a->bls", e, loc["w"].to(dtype))
+    beta = masked_softmax(scores, region_mask[:, None, :])         # [B,L,S]
+    v_hat = torch.einsum("bls,bsh->blh", beta.to(dtype), v_enc)
+    return beta, v_hat
+
+
+class _MatmulF32(torch.autograd.Function):
+    """x [N, K] @ w [K, M] in bf16 on the card with float32 sums and a
+    float32 result (one cuBLAS call). The backward takes the products in
+    float32 and casts each gradient to its input's type, as autograd of
+    the CPU path `x.float() @ w.float()` does."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = (g @ w.float().t()).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = (x.float().t() @ g).to(w.dtype)
+        return gx, gw
 
 
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -237,8 +357,8 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.float32:
         return x @ w
     if x.is_cuda:
-        return torch.mm(x.reshape(-1, x.shape[-1]), w,
-                        out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
+        return _MatmulF32.apply(x.reshape(-1, x.shape[-1]), w).reshape(
+            *x.shape[:-1], -1)
     return x.float() @ w.float()   # exact: products of bf16 fit in float32
 
 

@@ -44,3 +44,17 @@ def use_pallas_select(cfg, device: torch.device) -> bool:
     if ps is None:
         return torch.device(device).type == "cuda"
     return bool(ps)
+
+
+def use_pallas_train_scan(cfg, device: torch.device) -> bool:
+    """The kernels of the teacher-forced decode and reconstruct scans and
+    of their losses (training and the evaluation loss): the attention/LSTM
+    kernels with their backward kernels, and the masked cross entropy.
+    `ModelConfig.use_pallas` left as None picks them for CUDA tensors and
+    the plain path for CPU tensors, as `use_pallas` does. The JAX package
+    resolves auto to False even on a TPU, because there the kernel
+    boundaries inside `jax.grad` block XLA's fusion across scan steps;
+    PyTorch runs eagerly and fuses nothing across steps, so that reason
+    does not hold here. An explicit False is the A/B switch to the plain
+    path."""
+    return use_pallas(cfg, device)

@@ -38,7 +38,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argument types (pointers and the stream as void*)
 SIGNATURES = {
     "cvc_lstm_gates_fwd": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "cvc_lstm_gates_bwd": [_P] * 6 + [_I] * 3 + [_P],
     "cvc_additive_attention_fwd": [_P] * 7 + [_I] * 5 + [_P],
+    "cvc_additive_attention_bwd": [_P] * 13 + [_I] * 5 + [_P],
+    "cvc_masked_xent_fwd": [_P] * 4 + [_I] * 3 + [_P],
+    "cvc_masked_xent_bwd": [_P] * 5 + [_I] * 3 + [_P],
     "cvc_beam_decoder_core": [_P] * 12 + [_I] * 6 + [_P],
     "cvc_topk_lse": [_P] * 4 + [_I] * 4 + [_P],
 }
@@ -131,8 +135,9 @@ def library() -> ctypes.CDLL:
 
 def launch(name: str, *args) -> None:
     """Call C entry point `name` with tensors passed as their data
-    pointers, then the current stream of the first tensor's device.
-    Raises RuntimeError when the launch reports a CUDA error."""
+    pointers (None as a null pointer), then the current stream of the
+    first tensor's device. Raises RuntimeError when the launch reports a
+    CUDA error."""
     lib = library()
     device = next(a.device for a in args if isinstance(a, torch.Tensor))
     stream = torch.cuda.current_stream(device).cuda_stream

@@ -12,6 +12,12 @@ from __future__ import annotations
 import torch
 
 
+def upcast(x: torch.Tensor) -> torch.Tensor:
+    """x in float32, the type the kernels compute in; float64 stays float64
+    (the CPU gradient checks run in float64)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def lstm_cell(gates: torch.Tensor, c: torch.Tensor):
     """LSTM nonlinearity on precomputed gate preactivations, in the
     inputs' type. gates [B, 4H] = x @ Wx + h @ Wh + b. Returns (h', c')."""
@@ -34,12 +40,39 @@ def additive_attention_scores(keys: torch.Tensor, query: torch.Tensor,
 
 def masked_softmax(logits: torch.Tensor, mask: torch.Tensor,
                    dim: int = -1) -> torch.Tensor:
-    """Softmax over `dim` in float32 with masked entries exactly 0; a fully
-    masked row comes out all zero rather than NaN."""
-    logits = logits.float()
+    """Softmax over `dim` in float32 (float64 for float64 logits) with
+    masked entries exactly 0; a fully masked row comes out all zero rather
+    than NaN."""
+    logits = upcast(logits)
     live = mask > 0
     masked = torch.where(live, logits, torch.finfo(torch.float32).min)
     m = masked.amax(dim=dim, keepdim=True)
     ex = torch.exp(masked - m) * live
     denom = ex.sum(dim=dim, keepdim=True)
     return ex / torch.clamp(denom, min=1e-9)
+
+
+def masked_xent(logits: torch.Tensor, targets: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+    """Masked token cross entropy averaged over supervised tokens (the
+    reference's LanguageModelCriterion): logits [B, L, V], targets [B, L]
+    ids, mask [B, L] float -> sum of masked NLL / max(sum(mask), 1), in
+    float32."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = (logz - tgt) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
+            deterministic: bool) -> torch.Tensor:
+    """Inverted dropout (reference: --drop_prob_lm on the LSTM outputs):
+    each element is kept with probability 1 - rate and scaled by
+    1 / (1 - rate). The draws come from `generator`, which lies on x's
+    device; they cannot match jax.random's."""
+    if deterministic or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    kept = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(kept, x / keep, torch.zeros_like(x)).to(x.dtype)

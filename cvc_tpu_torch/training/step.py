@@ -1,0 +1,62 @@
+"""The training step (the port of `cvc_tpu/training/step.py`):
+
+    decode scan -> localize -> reconstruct scan -> summed masked XE
+    -> gradients -> global-norm clip -> Adam update
+
+run eagerly on one device. On CUDA the scans run the LSTM and attention
+kernels with their backward kernels and the losses the masked cross-entropy
+kernels (`ops/dispatch.use_pallas_train_scan`).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cvc_tpu_torch.models.cyclical import cyclical_loss
+from cvc_tpu_torch.ops.dispatch import resolve_device
+from cvc_tpu_torch.training.optimizer import make_optimizer
+
+
+def make_train_step(model_cfg, train_cfg, steps_per_epoch: int,
+                    device="cuda"):
+    """step(state, arrays, generator) -> metrics: one update of the
+    `TrainState` in place. `arrays` holds the batch's tensors on `device`
+    (see models/cyclical.py); `generator` is a torch.Generator on `device`
+    for the dropout draws (None: no dropout). The metrics are 0-d device
+    tensors, `grad_norm` the gradients' global norm before clipping;
+    nothing in the step waits for the host. Raises without a GPU unless
+    device="cpu"."""
+    resolve_device(device)
+    if train_cfg.scheduled_sampling_start >= 0:
+        raise NotImplementedError("scheduled sampling is not ported yet")
+    optimizer = make_optimizer(train_cfg, steps_per_epoch)
+    enable_cycle = train_cfg.enable_cycle
+
+    def train_step(state, arrays: dict, generator=None) -> dict:
+        leaves = state.leaves
+        for p in leaves:
+            p.grad = None
+        loss, metrics = cyclical_loss(state.params, model_cfg, arrays,
+                                      generator=generator, train=True,
+                                      enable_cycle=enable_cycle)
+        loss.backward()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["grad_norm"] = optimizer.update(state.opt, leaves, state.step)
+        state.step += 1
+        return metrics
+
+    return train_step
+
+
+def make_eval_step(model_cfg, device="cuda"):
+    """eval_step(params, arrays) -> metrics: the cyclical loss with no
+    dropout and no gradient. Raises without a GPU unless device="cpu"."""
+    resolve_device(device)
+
+    @torch.no_grad()
+    def eval_step(params, arrays: dict) -> dict:
+        _, metrics = cyclical_loss(params, model_cfg, arrays, generator=None,
+                                   train=False, enable_cycle=True)
+        return metrics
+
+    return eval_step

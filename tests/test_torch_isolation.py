@@ -48,3 +48,18 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         make_decoder(ModelConfig(), EvalConfig())
     with pytest.raises(RuntimeError, match="cuda"):
         params_from_numpy({})
+
+
+def test_training_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch):
+    from cvc_tpu_torch.config import ModelConfig, TrainConfig
+    from cvc_tpu_torch.models.core import init_params
+    from cvc_tpu_torch.training.step import make_eval_step, make_train_step
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_train_step(ModelConfig(), TrainConfig(), 10)
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_eval_step(ModelConfig())
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_params(torch.Generator(), ModelConfig())

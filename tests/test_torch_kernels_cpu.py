@@ -11,6 +11,7 @@ and one bf16 rounding step is 2^-8 ~ 4e-3 relative, a few of which add up
 through tanh, the softmax and the context sum.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,10 +21,11 @@ from cvc_tpu.ops.pallas.attention import fused_additive_attention as j_attn
 from cvc_tpu.ops.pallas.decoder_step import fused_beam_decoder_core as j_core
 from cvc_tpu.ops.pallas.lstm import fused_lstm_gates as j_lstm
 from cvc_tpu.ops.pallas.topk_select import fused_topk_lse as j_topk
+from cvc_tpu.ops.pallas import xent as j_xent_mod
 from cvc_tpu_torch.ops import dispatch
 from cvc_tpu_torch.ops.kernels import (attention, decoder_step, lstm,
                                        launch_counts, reset_launch_counts,
-                                       topk_select)
+                                       topk_select, xent)
 from cvc_tpu_torch.ops.primitives import masked_softmax
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -197,3 +199,188 @@ def test_dispatch_policy():
     Cfg.use_pallas, Cfg.pallas_select = False, True
     assert not dispatch.use_pallas(Cfg, cuda)
     assert dispatch.use_pallas_select(Cfg, cpu)
+
+
+# ---------------------------------------------------------------------------
+# Backward kernels and the masked cross entropy (the training slice)
+# ---------------------------------------------------------------------------
+
+GRAD_TOL = dict(rtol=2e-4, atol=2e-5)   # tests/test_pallas_kernels.py's
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lstm_gates_bwd_plain_matches_pallas_vjp(dtype):
+    rng = np.random.default_rng(11)
+    R, H = 10, 16
+    f = lambda *s: rng.normal(size=s).astype(np.float32)
+    jg, tg = _pair(f(R, 4 * H), dtype)
+    jc, tc = _pair(f(R, H), dtype)
+    jgh, tgh = _pair(f(R, H), dtype)
+    jgc, tgc = _pair(f(R, H), dtype)
+    _, vjp = jax.vjp(lambda g, c: j_lstm(g, c, 4, True), jg, jc)
+    want_dg, want_dc = vjp((jgh, jgc))
+    got_dg, got_dc = lstm.lstm_gates_bwd_plain(tg, tc, tgh, tgc)
+    assert got_dg.dtype == got_dc.dtype == DTYPES[dtype][1]
+    _close(got_dg, want_dg, GRAD_TOL, dtype, "dgates")
+    _close(got_dc, want_dc, GRAD_TOL, dtype, "dc")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_g_alpha", [True, False])
+def test_additive_attention_bwd_plain_matches_pallas_vjp(dtype, with_g_alpha):
+    """B = 6 is not a multiple of the Pallas batch block (4), image 2 is
+    fully masked, and alpha gets a gradient of its own or none (zero)."""
+    rng = np.random.default_rng(12)
+    B, S, A, H = 6, 16, 32, 24
+    f = lambda *s: rng.normal(size=s).astype(np.float32)
+    jk, tk = _pair(f(B, S, A), dtype)
+    jq, tq = _pair(f(B, A), dtype)
+    jw, tw = _pair(f(A), dtype)
+    jv, tv = _pair(f(B, S, H), dtype)
+    mask = _mask(rng, B, S, empty=(2,))
+    jgc, tgc = _pair(f(B, H), dtype)
+    ga = f(B, S) if with_g_alpha else np.zeros((B, S), np.float32)
+    jm, tm = jnp.asarray(mask), torch.from_numpy(mask)
+    (_, jalpha), vjp = jax.vjp(
+        lambda k, q, w, v: j_attn(k, q, w, v, jm, 4, True), jk, jq, jw, jv)
+    want = vjp((jgc, jnp.asarray(ga)))
+    talpha = attention.additive_attention_plain(tk, tq, tw, tv, tm)[1]
+    got = attention.additive_attention_bwd_plain(
+        tk, tq, tw, tv, tm, talpha, tgc,
+        torch.from_numpy(ga) if with_g_alpha else None)
+    for g, w, name, t in zip(got, want, ("dkeys", "dq", "dw", "dv"),
+                             (tk, tq, tw, tv)):
+        assert g.dtype == t.dtype and g.shape == t.shape, name
+        _close(g, w, GRAD_TOL, dtype, name)
+    assert (got[0][2] == 0).all() and (got[3][2] == 0).all()
+    assert (got[1][2] == 0).all()
+
+
+def _xent_inputs(rng, N, V, dtype):
+    jx, tx = _pair(rng.normal(size=(N, V)).astype(np.float32) * 3, dtype)
+    tgt = rng.integers(0, V, size=N).astype(np.int32)
+    mask = (rng.uniform(size=N) < 0.7).astype(np.float32)
+    return jx, tx, tgt, mask
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_masked_xent_rows_plain_matches_pallas(dtype):
+    """N = 200 is not a multiple of the Pallas row block (128); about a
+    third of the rows are masked."""
+    rng = np.random.default_rng(13)
+    jx, tx, tgt, mask = _xent_inputs(rng, 200, 256, dtype)
+    want = j_xent_mod._nll_rows(jx, jnp.asarray(tgt), jnp.asarray(mask),
+                                128, True)
+    got = xent.masked_xent_rows_plain(tx, torch.from_numpy(tgt),
+                                      torch.from_numpy(mask))
+    assert got.dtype == torch.float32
+    _close(got, want, dict(rtol=1e-5, atol=1e-5), dtype, "nll")
+    assert (got[mask == 0] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_masked_xent_bwd_plain_matches_pallas_vjp(dtype):
+    rng = np.random.default_rng(14)
+    jx, tx, tgt, mask = _xent_inputs(rng, 200, 256, dtype)
+    g = 0.37
+    _, vjp = jax.vjp(lambda x: j_xent_mod.fused_masked_xent(
+        x, jnp.asarray(tgt), jnp.asarray(mask), 128, True), jx)
+    (want,) = vjp(jnp.asarray(g, jnp.float32))
+    got = xent.masked_xent_bwd_plain(tx, torch.from_numpy(tgt),
+                                     torch.from_numpy(mask),
+                                     torch.tensor([g]))
+    assert got.dtype == DTYPES[dtype][1]
+    _close(got, want, dict(rtol=2e-4, atol=2e-6), dtype, "dlogits")
+    assert (got[torch.from_numpy(mask) == 0] == 0).all()
+
+
+def test_masked_xent_plain_matches_primitive():
+    """The fused loss (sum of rows over the mask's sum) is the plain
+    masked_xent of ops/primitives.py."""
+    from cvc_tpu_torch.ops.primitives import masked_xent
+    rng = np.random.default_rng(15)
+    _, tx, tgt, mask = _xent_inputs(rng, 24, 64, "float32")
+    total = xent.fused_masked_xent(tx, torch.from_numpy(tgt),
+                                   torch.from_numpy(mask))
+    want = masked_xent(tx.view(4, 6, 64), torch.from_numpy(tgt).view(4, 6),
+                       torch.from_numpy(mask).view(4, 6))
+    torch.testing.assert_close(total / max(mask.sum(), 1.0), want,
+                               rtol=1e-6, atol=1e-6)
+
+
+def _f64(rng, *shape):
+    return torch.from_numpy(rng.normal(size=shape)).requires_grad_(True)
+
+
+def test_lstm_gates_gradcheck():
+    rng = np.random.default_rng(16)
+    g, c = _f64(rng, 3, 16), _f64(rng, 3, 4)
+    assert torch.autograd.gradcheck(lstm.fused_lstm_gates, (g, c))
+    # an output that enters no loss: its gradient is taken as zero
+    assert torch.autograd.gradcheck(
+        lambda a, b: lstm.fused_lstm_gates(a, b)[0], (g, c))
+
+
+def test_additive_attention_gradcheck():
+    rng = np.random.default_rng(17)
+    B, S, A, H = 3, 5, 4, 6
+    keys, q, w, v = (_f64(rng, B, S, A), _f64(rng, B, A), _f64(rng, A),
+                     _f64(rng, B, S, H))
+    mask = torch.from_numpy(_mask(rng, B, S, empty=(1,))).double()
+    fn = lambda *x: attention.fused_additive_attention(*x, mask)
+    assert torch.autograd.gradcheck(fn, (keys, q, w, v))
+    assert torch.autograd.gradcheck(lambda *x: fn(*x)[0], (keys, q, w, v))
+
+
+def test_masked_xent_gradcheck():
+    rng = np.random.default_rng(18)
+    x = _f64(rng, 7, 10)
+    tgt = torch.from_numpy(rng.integers(0, 10, size=7))
+    mask = torch.tensor([1, 0, 1, 1, 0.5, 1, 0], dtype=torch.float64)
+    assert torch.autograd.gradcheck(
+        lambda z: xent.fused_masked_xent(z, tgt, mask), (x,))
+
+
+def test_backward_wrappers_take_plain_version_on_cpu_without_counting():
+    """On CPU tensors the backward and cross-entropy wrappers return their
+    plain versions' results and count no launch."""
+    reset_launch_counts()
+    rng = np.random.default_rng(19)
+    t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    g, c, gh, gc = t(4, 32), t(4, 8), t(4, 8), t(4, 8)
+    for a, b in zip(lstm.fused_lstm_gates_bwd(g, c, gh, gc),
+                    lstm.lstm_gates_bwd_plain(g, c, gh, gc)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    keys, q, w, v = t(2, 5, 8), t(2, 8), t(8), t(2, 5, 8)
+    mask = torch.ones(2, 5)
+    alpha = attention.additive_attention_plain(keys, q, w, v, mask)[1]
+    args = (keys, q, w, v, mask, alpha, t(2, 8), t(2, 5))
+    for a, b in zip(attention.fused_additive_attention_bwd(*args),
+                    attention.additive_attention_bwd_plain(*args)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    x, tgt, m = t(6, 16), torch.arange(6, dtype=torch.int32), torch.ones(6)
+    torch.testing.assert_close(xent.fused_masked_xent_rows(x, tgt, m),
+                               xent.masked_xent_rows_plain(x, tgt, m),
+                               rtol=0, atol=0)
+    gg = torch.tensor([0.5])
+    torch.testing.assert_close(xent.fused_masked_xent_bwd(x, tgt, m, gg),
+                               xent.masked_xent_bwd_plain(x, tgt, m, gg),
+                               rtol=0, atol=0)
+    assert set(launch_counts().values()) == {0}
+    assert len(launch_counts()) == 8
+
+
+def test_train_scan_dispatch_policy():
+    """use_pallas_train_scan resolves as use_pallas: the kernels on CUDA,
+    the plain path on the CPU, an explicit value on any device."""
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+
+    class Cfg:
+        use_pallas = None
+
+    assert dispatch.use_pallas_train_scan(Cfg, cuda)
+    assert not dispatch.use_pallas_train_scan(Cfg, cpu)
+    Cfg.use_pallas = False
+    assert not dispatch.use_pallas_train_scan(Cfg, cuda)
+    Cfg.use_pallas = True
+    assert dispatch.use_pallas_train_scan(Cfg, cpu)
