@@ -15,7 +15,11 @@
    vocabulary 8704 with masked rows), with the allocator's memory set to
    NaN first so that an unwritten output element fails the comparison,
    and the attention backward's dw checked bit-equal across two launches.
-   Times each kernel, its plain version and, where one PyTorch call
+   Each gradient is held to a tolerance set by its typical element, and
+   the same tolerance must reject a copy 5% off in its typical elements
+   (and, for the cross entropy, a softmax scaled by 1.05). The bf16
+   vocabulary head's product and gradients are held against autograd of
+   its float32 form. Times each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, and computes each kernel's
    bound: the larger of the bytes it must move over 3.35 TB/s and its
    operations over the card's peak for the type. Then checks that each
@@ -26,7 +30,8 @@
    128 requests in bf16 and float32 at pipeline depths 1 and 2, and
    greedy decoding. Every launch counter is set to 0 before each path
    and read after it. In float32 the kernel path's tokens are compared
-   with the plain path's on the card. Reports beam-5 captions/s in bf16.
+   with the plain path's on the card. Reports beam-5 and greedy
+   captions/s in bf16.
 4. Drives the training path at the widths of
    `configs/c3_flickr_cyclical.json` with seeded random weights and one
    seeded random batch of 64: `make_train_step` for 5 steps in float32
@@ -40,6 +45,13 @@
 
 Exits non-zero, with no result line, on any failure, when no CUDA device
 is present, or when the port's package is not beside this script.
+
+    python3 chip_smoke.py --serving-rates
+
+builds the kernels and prints only the bf16 beam-5 and greedy rates and a
+`{"serving_rates": ...}` line. Copied into another checkout of the repo
+and run there, it times that checkout's package with this timing code:
+run parent, change, change, parent in one call to compare two versions.
 """
 
 from __future__ import annotations
@@ -155,20 +167,32 @@ class Smoke:
         worst = 0.0
         for g, w, name in zip(got, want, names):
             g, w = g.float(), w.float()
-            ok_shape = g.shape == w.shape
             diff = (g - w).abs()
             abs_err = float(diff.max()) if diff.numel() else 0.0
             rel_err = float((diff / w.abs().clamp(min=1e-6)).max()) \
                 if diff.numel() else 0.0
             atol, rtol = (tol or {}).get(name) or TOL[dtype].get(
                 name, TOL[dtype]["default"])
-            ok = (ok_shape and bool(self.torch.isfinite(g).all())
-                  and bool((diff <= atol + rtol * w.abs()).all()))
-            self.check(ok, f"{label} {name}: max_abs_err {abs_err:.3e} "
-                           f"max_rel_err {rel_err:.3e} (atol {atol:g}, "
-                           f"rtol {rtol:g})")
+            self.check(self.within(g, w, atol, rtol),
+                       f"{label} {name}: max_abs_err {abs_err:.3e} "
+                       f"max_rel_err {rel_err:.3e} (atol {atol:.3g}, "
+                       f"rtol {rtol:g})")
             worst = max(worst, abs_err)
         return worst
+
+    def within(self, got, want, atol, rtol) -> bool:
+        got, want = got.float(), want.float()
+        return (got.shape == want.shape
+                and bool(self.torch.isfinite(got).all())
+                and bool(((got - want).abs()
+                          <= atol + rtol * want.abs()).all()))
+
+    def rejects(self, label, bad, want, atol, rtol) -> None:
+        """Checks that `bad`, a deliberately wrong output, fails the
+        tolerance that the kernel's output is held to."""
+        self.check(not self.within(bad, want, atol, rtol),
+                   f"{label}: rejected by the same tolerance (atol "
+                   f"{atol:.3g}, rtol {rtol:g})")
 
 
 def n_sets(bytes_per_set: int) -> int:
@@ -359,17 +383,40 @@ def poison(torch, dev) -> None:
     del big, small
 
 
+def typical(want) -> float:
+    """The size of a typical element of a gradient output: the median of
+    |want| over its nonzero elements (rows that must be exactly zero, the
+    masked ones, are checked on their own and do not shrink it)."""
+    a = want.float().abs()
+    a = a[a != 0]
+    return float(a.median()) if a.numel() else 0.0
+
+
 def grad_tol(dtype: str, want) -> tuple[float, float]:
-    """(abs, rel) tolerance of a gradient output: the absolute part scales
-    with the output's largest element, since gradients have no natural
-    size. float32: sums in another order and CUDA's expf/tanhf against
-    PyTorch's. bf16: the same rounding points on both sides, but a float32
-    difference at a rounding boundary flips one bf16 step (2^-8 relative)
-    in an element, and in a sum of such elements."""
-    top = float(want.float().abs().max()) if want.numel() else 0.0
+    """(abs, rel) tolerance of a gradient output. Both sides round at the
+    same points and sum in float32, so an element differs by float32 sums
+    in another order and CUDA's expf/tanhf against PyTorch's, and in bf16
+    by one flipped step (2^-8 relative) where those land on a rounding
+    boundary. rel: 1e-4 in float32, 2e-2 (2.5 to 5 bf16 steps) in bf16.
+    abs: a 1e-3 (float32) or 1e-2 (bf16) share of a typical element, for
+    elements near zero where terms cancel (in float32 dkeys, 1 - u^2 near
+    u = 1 carries tanh's last-bit difference: 7.5e-8 on an H100 against
+    a typical element of 1e-3). Gradients have no natural size, and their
+    largest element can be ~10^4 typical ones (dlogits at the target), so
+    the abs part is not scaled by it."""
+    t = typical(want)
     if dtype == "float32":
-        return (1e-5 * top, 1e-4)
-    return (1e-2 * top, 2e-2)
+        return (1e-3 * t, 1e-4)
+    return (1e-2 * t, 2e-2)
+
+
+def perturb_typical(want):
+    """`want` with its elements of typical size or smaller (|w| <= the
+    median of the nonzero |w|) 5% too large: the error that a tolerance
+    scaled by the largest element would let through."""
+    import torch
+    w = want.float()
+    return torch.where(w.abs() <= typical(want), w * 1.05, w)
 
 
 def train_kernel_phase(sm: Smoke, results: dict) -> None:
@@ -400,10 +447,13 @@ def train_kernel_phase(sm: Smoke, results: dict) -> None:
             poison(torch, sm.dev)
             got = lstm.fused_lstm_gates_bwd(*sets[0])
             want = lstm.lstm_gates_bwd_plain(*sets[0])
-            err = sm.compare(f"fused_lstm_gates_bwd {dname} R={R} H={H}",
-                             got, want, dname, ("dgates", "dc"),
-                             {n: grad_tol(dname, w)
-                              for n, w in zip(("dgates", "dc"), want)})
+            label = f"fused_lstm_gates_bwd {dname} R={R} H={H}"
+            tols = {n: grad_tol(dname, w)
+                    for n, w in zip(("dgates", "dc"), want)}
+            err = sm.compare(label, got, want, dname, ("dgates", "dc"), tols)
+            for n, w in zip(("dgates", "dc"), want):
+                sm.rejects(f"{label} {n} with its typical elements 5% off",
+                           perturb_typical(w), w, *tols[n])
             key = ("fused_lstm_gates_bwd" if dname == "float32"
                    and R == TRAIN_BATCH else None)
             record(sm, results, key, f"R={R} H={H}", dname,
@@ -437,9 +487,11 @@ def train_kernel_phase(sm: Smoke, results: dict) -> None:
             want = attention.additive_attention_bwd_plain(*sets[0])
             names = ("dkeys", "dq", "dw", "dv")
             label = f"fused_additive_attention_bwd {dname} B={B} S={S}"
-            err = sm.compare(label, got, want, dname, names,
-                             {n: grad_tol(dname, w)
-                              for n, w in zip(names, want)})
+            tols = {n: grad_tol(dname, w) for n, w in zip(names, want)}
+            err = sm.compare(label, got, want, dname, names, tols)
+            for n, w in zip(names, want):
+                sm.rejects(f"{label} {n} with its typical elements 5% off",
+                           perturb_typical(w), w, *tols[n])
             sm.check(bool((got[0][3] == 0).all() and (got[1][3] == 0).all()
                           and (got[3][3] == 0).all()
                           and (got[0][:, live:] == 0).all()
@@ -484,11 +536,20 @@ def train_kernel_phase(sm: Smoke, results: dict) -> None:
             poison(torch, sm.dev)
             got = xent.fused_masked_xent_bwd(*bsets[0])
             want = xent.masked_xent_bwd_plain(*bsets[0])
+            tol = grad_tol(dname, want)
             err_b = sm.compare(label + " bwd", (got,), (want,), dname,
-                               ("dlogits",),
-                               {"dlogits": grad_tol(dname, want)})
+                               ("dlogits",), {"dlogits": tol})
             sm.check(bool((got[sets[0][2] == 0] == 0).all()),
                      f"{label}: masked rows give a zero dlogits row")
+            x, tgt, m = sets[0]
+            onehot = torch.nn.functional.one_hot(tgt.long(), V).float()
+            scaled = ((1.05 * torch.softmax(x.float(), -1) - onehot)
+                      * m[:, None] * g)
+            sm.rejects(f"{label} bwd with the softmax scaled by 1.05",
+                       scaled, want, *tol)
+            sm.rejects(f"{label} bwd with its typical elements 5% off",
+                       perturb_typical(want), want, *tol)
+            del onehot, scaled
             kept = dname == "float32" and N == TRAIN_BATCH * STEPS
 
             def lib_fwd(x, t, m):
@@ -518,6 +579,50 @@ def train_kernel_phase(sm: Smoke, results: dict) -> None:
                    bsets, bwd_bytes, n_live * V * 6, err_b,
                    library=lib_bwd)
             graphs.clear()
+
+
+def bf16_head_phase(sm: Smoke) -> None:
+    """The bf16 vocabulary head of the train step, `core.matmul_f32` (bf16
+    inputs, float32 sums and result; an autograd Function around
+    `torch.mm(..., out_dtype=float32)`), against autograd of
+    `x.float() @ w.float()` on the same inputs at the c3 shapes: the
+    product and both gradients. First probes whether autograd
+    differentiates `torch.mm(..., out_dtype=float32)` itself."""
+    torch = sm.torch
+    from cvc_tpu_torch.models import core
+
+    gen = torch.Generator(device=sm.dev).manual_seed(5)
+    N, H, V = TRAIN_BATCH * STEPS, 1024, 8704
+    x = torch.randn((N, H), generator=gen, device=sm.dev).bfloat16()
+    w = (torch.randn((H, V), generator=gen, device=sm.dev)
+         * H ** -0.5).bfloat16()
+    g = torch.randn((N, V), generator=gen, device=sm.dev) * 1e-3
+    xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    try:
+        torch.autograd.grad(torch.mm(xr, wr, out_dtype=torch.float32),
+                            (xr, wr), g)
+        probe = "differentiates it"
+    except RuntimeError as e:
+        probe = f"raises: {str(e).splitlines()[0][:120]}"
+    print(f"bf16 head: autograd of torch.mm(..., out_dtype=float32) "
+          f"{probe}", flush=True)
+
+    def grads(fn):
+        a, b = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        y = fn(a, b)
+        return (y.detach(), *torch.autograd.grad(y, (a, b), g))
+    got = grads(core.matmul_f32)
+    want = grads(lambda a, b: a.float() @ b.float())
+    names = ("y", "dx", "dw")
+    label = f"bf16 head matmul_f32 N={N} H={H} V={V} vs x.float() @ w.float()"
+    sm.check(got[1].dtype == got[2].dtype == torch.bfloat16,
+             f"{label}: gradients in bf16")
+    tols = {"y": TOL["float32"]["default"],
+            "dx": grad_tol("bfloat16", want[1]),
+            "dw": grad_tol("bfloat16", want[2])}
+    sm.compare(label, got, want, "bfloat16", names, tols)
+    sm.rejects(f"{label} dw 5% off in its typical elements",
+               perturb_typical(want[2]), want[2], *tols["dw"])
 
 
 def reject_phase(sm: Smoke) -> None:
@@ -609,16 +714,11 @@ def make_requests(cfg, n: int, seed: int):
     return reqs
 
 
-def serving_phase(sm: Smoke, smi: str, counts: dict) -> None:
-    torch = sm.torch
-    import dataclasses
-
-    import numpy as np
-
+def serving_setup(torch):
+    """(flagship config, seeded random parameters, synthetic vocabulary,
+    seeded random requests)."""
     from cvc_tpu_torch.data.vocab import Vocabulary
     from cvc_tpu_torch.models import core
-    from cvc_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
-    from cvc_tpu_torch.serving import Captioner
 
     t0 = time.perf_counter()
     base = flagship_config()
@@ -627,10 +727,43 @@ def serving_phase(sm: Smoke, smi: str, counts: dict) -> None:
     if vocab.padded_size(128) != base.vocab_size:
         raise ValueError("synthetic vocabulary does not pad to the head")
     reqs = make_requests(base, N_REQUESTS, seed=1)
-    n_batches = math.ceil(N_REQUESTS / BATCH)
     print(f"serving: {core.param_count(params)} parameters, "
           f"{N_REQUESTS} requests, set-up {time.perf_counter() - t0:.1f} s",
           flush=True)
+    return base, params, vocab, reqs
+
+
+def serving_rates(sm: Smoke, smi: str) -> dict:
+    """Only the serving rates (`--serving-rates`): beam-5 and greedy, bf16,
+    through caption() and through the decoder alone, with the same
+    windows as the full run. Run from a copy of another tree's checkout,
+    it measures that tree's package with this script's timing code, so two
+    versions compare within one call."""
+    import dataclasses
+
+    from cvc_tpu_torch.serving import Captioner
+
+    base, params, vocab, reqs = serving_setup(sm.torch)
+    cfg = dataclasses.replace(base, dtype="bfloat16")
+    rates = {}
+    for label, beam in (("beam-5 bf16", BEAM), ("greedy bf16", 1)):
+        cap = Captioner.build(params, cfg, vocab, beam_size=beam,
+                              batch_size=BATCH, device=DEVICE)
+        rates[label] = throughput(sm, cap, reqs, smi, label, profile=False)
+    return rates
+
+
+def serving_phase(sm: Smoke, smi: str, counts: dict) -> None:
+    torch = sm.torch
+    import dataclasses
+
+    import numpy as np
+
+    from cvc_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from cvc_tpu_torch.serving import Captioner
+
+    base, params, vocab, reqs = serving_setup(torch)
+    n_batches = math.ceil(N_REQUESTS / BATCH)
 
     def valid(out, label):
         ok = len(out) == N_REQUESTS
@@ -670,7 +803,7 @@ def serving_phase(sm: Smoke, smi: str, counts: dict) -> None:
         sm.check(out1 == out2, f"beam-5 {dname}: pipeline_depth 1 and 2 "
                                f"give identical results")
         if dname == "bfloat16":
-            throughput(sm, cap, reqs, smi)
+            throughput(sm, cap, reqs, smi, "beam-5 bf16")
         else:
             compare_paths(sm, cap, Captioner.build(
                 params, dataclasses.replace(cfg, use_pallas=False,
@@ -686,7 +819,9 @@ def serving_phase(sm: Smoke, smi: str, counts: dict) -> None:
         drive(cap, f"greedy {dname}", {
             "fused_lstm_gates": 2 * STEPS, "fused_additive_attention": STEPS,
             "fused_beam_decoder_core": 0, "fused_topk_lse": STEPS})
-        if dname == "float32":
+        if dname == "bfloat16":
+            throughput(sm, cap, reqs, smi, "greedy bf16", profile=False)
+        else:
             compare_paths(sm, cap, Captioner.build(
                 params, dataclasses.replace(cfg, use_pallas=False,
                                             pallas_select=False),
@@ -694,10 +829,12 @@ def serving_phase(sm: Smoke, smi: str, counts: dict) -> None:
                 reqs, "greedy")
 
 
-def throughput(sm: Smoke, cap, reqs, smi: str) -> None:
-    """Beam-5 bf16 captions/s through caption() (packing, decode and
-    response included) and through the decoder alone on packed batches,
-    then one profiled decode: the card's busy share and its top kernels."""
+def throughput(sm: Smoke, cap, reqs, smi: str, label: str,
+               profile: bool = True) -> dict:
+    """captions/s of `cap` through caption() (packing, decode and response
+    included) and through the decoder alone on packed batches, then, with
+    `profile`, one profiled decode: the card's busy share and its top
+    kernels. Returns the two rates."""
     torch = sm.torch
     many = reqs * 2
     cap.caption(reqs[:BATCH], pipeline_depth=2)                # warm
@@ -708,7 +845,8 @@ def throughput(sm: Smoke, cap, reqs, smi: str) -> None:
         cap.caption(many, pipeline_depth=2)
         times.append(time.perf_counter() - t0)
     rates = sorted(len(many) / t for t in times)
-    print(f"beam-5 bf16 B={BATCH}: {len(many) * WINDOWS / sum(times):.1f} "
+    caption_rate = len(many) * WINDOWS / sum(times)
+    print(f"{label} B={BATCH}: {caption_rate:.1f} "
           f"captions/s through caption() ({WINDOWS} windows of {len(many)} "
           f"requests, depth 2, total over total time; median window "
           f"{statistics.median(rates):.1f}, range {rates[0]:.1f}-"
@@ -725,15 +863,17 @@ def throughput(sm: Smoke, cap, reqs, smi: str) -> None:
         times.append((time.perf_counter() - t0) / 4)
     rates = sorted(BATCH / t for t in times)
     per_batch = sum(times) / WINDOWS
-    print(f"beam-5 bf16 B={BATCH}: {BATCH / per_batch:.1f} captions/s "
+    print(f"{label} B={BATCH}: {BATCH / per_batch:.1f} captions/s "
           f"through the decoder alone ({WINDOWS} windows of 4 batches, total "
           f"over total time: {per_batch * 1e3:.2f} ms a batch of {BATCH}, "
           f"{per_batch * 1e3 / STEPS:.3f} ms a step; median window "
           f"{statistics.median(rates):.1f}, range {rates[0]:.1f}-"
           f"{rates[-1]:.1f}) on {smi}", flush=True)
 
-    profile_report(sm, lambda: cap.decoder(cap.params, arrays),
-                   f"one beam-5 bf16 decode of {BATCH}")
+    if profile:
+        profile_report(sm, lambda: cap.decoder(cap.params, arrays),
+                       f"one {label} decode of {BATCH}")
+    return {"caption": caption_rate, "decoder": BATCH / per_batch}
 
 
 def profile_report(sm: Smoke, fn, label: str, top_n: int = 8) -> None:
@@ -1060,7 +1200,10 @@ KERNEL_ROWS = [
 ]
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    if argv not in ([], ["--serving-rates"]):
+        print("usage: chip_smoke.py [--serving-rates]", file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1087,9 +1230,15 @@ def main() -> int:
           f"({'compiled' if build.build_seconds else 'already built'})",
           flush=True)
 
+    if argv:
+        rates = serving_rates(sm, smi)
+        print(json.dumps({"serving_rates": rates}), flush=True)
+        return 0
+
     results: dict = {}
     kernel_phase(sm, results)
     train_kernel_phase(sm, results)
+    bf16_head_phase(sm)
     reject_phase(sm)
     counts: dict = {}
     serving_phase(sm, smi, counts)
@@ -1122,4 +1271,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -202,8 +202,7 @@ def step_weights(params, cfg, dtype: torch.dtype) -> dict:
 
 
 def decoder_step(params, cfg, carry, inputs, v_enc, keys, region_mask,
-                 context_mix=None, use_attention: bool = True, kernels=None,
-                 weights=None):
+                 context_mix=None, use_attention: bool = True, weights=None):
     """One decode step.
 
     carry:  (h_att, c_att, h_lang, c_lang) each [B, H]
@@ -213,16 +212,15 @@ def decoder_step(params, cfg, carry, inputs, v_enc, keys, region_mask,
         0 the attention context.
     use_attention False is the reconstruct mode: the context is
         inputs["ctx"] (the localized feature v̂) and alpha is zero.
-    kernels: whether the kernels run; None resolves `cfg.use_pallas` for
-        the tensors' device.
     weights: `step_weights(params, cfg, keys.dtype)`, formed here when
-        None. Returns (carry', (h_lang', alpha [B, S])).
+        None.
+    The kernels run when `use_pallas_train_scan` resolves so for the
+    tensors' device. Returns (carry', (h_lang', alpha [B, S])).
     """
     h_att, c_att, h_lang, c_lang = carry
     dtype = keys.dtype
     w = step_weights(params, cfg, dtype) if weights is None else weights
-    use_kernels = (dispatch.use_pallas(cfg, keys.device) if kernels is None
-                   else kernels)
+    use_kernels = dispatch.use_pallas_train_scan(cfg, keys.device)
     if use_kernels:
         from cvc_tpu_torch.ops.kernels import (fused_additive_attention,
                                                fused_lstm_gates)
@@ -290,7 +288,6 @@ def decode(params, cfg, v_enc, keys, v_global, emb_seq, region_mask,
     pre1_t = pre1.unbind(1)
     ctx_t = (None if context_override is None
              else context_override.to(dtype).unbind(1))
-    kernels = dispatch.use_pallas_train_scan(cfg, keys.device)
     weights = step_weights(params, cfg, dtype)
     carry = initial_state(B, cfg.rnn_size, dtype, keys.device)
     hs, alphas = [], []
@@ -301,7 +298,7 @@ def decode(params, cfg, v_enc, keys, v_global, emb_seq, region_mask,
         carry, (h, alpha) = decoder_step(
             params, cfg, carry, inputs, v_enc, keys, region_mask,
             context_mix=context_mix, use_attention=use_attention,
-            kernels=kernels, weights=weights)
+            weights=weights)
         hs.append(h)
         alphas.append(alpha)
     return torch.stack(hs, 1), torch.stack(alphas, 1), carry
@@ -333,7 +330,9 @@ class _MatmulF32(torch.autograd.Function):
     """x [N, K] @ w [K, M] in bf16 on the card with float32 sums and a
     float32 result (one cuBLAS call). The backward takes the products in
     float32 and casts each gradient to its input's type, as autograd of
-    the CPU path `x.float() @ w.float()` does."""
+    the CPU path `x.float() @ w.float()` does. The Function is needed:
+    autograd has no formula for `torch.mm(..., out_dtype=...)` ("derivative
+    for aten::mm is not implemented"; `chip_smoke.py` probes it)."""
 
     @staticmethod
     def forward(ctx, x, w):
@@ -357,8 +356,12 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.float32:
         return x @ w
     if x.is_cuda:
-        return _MatmulF32.apply(x.reshape(-1, x.shape[-1]), w).reshape(
-            *x.shape[:-1], -1)
+        x2 = x.reshape(-1, x.shape[-1])
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            y = _MatmulF32.apply(x2, w)
+        else:                      # serving: no graph to record
+            y = torch.mm(x2, w, out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], -1)
     return x.float() @ w.float()   # exact: products of bf16 fit in float32
 
 

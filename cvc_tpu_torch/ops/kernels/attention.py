@@ -158,8 +158,12 @@ def fused_additive_attention(keys, q, w, v, mask):
 
     CPU tensors take `additive_attention_plain`; CUDA tensors launch the
     kernel, which takes A and H multiples of 16 bytes of elements and
-    16-byte aligned keys and v."""
-    return _AdditiveAttention.apply(keys, q, w, v, mask)
+    16-byte aligned keys and v. Without a gradient to record (serving) the
+    forward runs directly, without the autograd Function's host cost."""
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (keys, q, w, v)):
+        return _AdditiveAttention.apply(keys, q, w, v, mask)
+    return _attention_fwd(keys, q, w, v, mask)
 
 
 fused_additive_attention.launches = 0

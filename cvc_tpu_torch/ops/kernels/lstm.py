@@ -123,8 +123,11 @@ def fused_lstm_gates(gates: torch.Tensor, c: torch.Tensor):
 
     CPU tensors take `lstm_gates_plain`; CUDA tensors launch the kernel,
     which takes H a multiple of 16 bytes of elements and 16-byte aligned
-    inputs."""
-    return _LstmGates.apply(gates, c)
+    inputs. Without a gradient to record (serving) the forward runs
+    directly, without the autograd Function's host cost."""
+    if torch.is_grad_enabled() and (gates.requires_grad or c.requires_grad):
+        return _LstmGates.apply(gates, c)
+    return _lstm_fwd(gates, c)
 
 
 fused_lstm_gates.launches = 0

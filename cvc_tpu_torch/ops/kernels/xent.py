@@ -132,9 +132,8 @@ def fused_masked_xent(logits, targets, mask):
     logits through `fused_masked_xent_bwd`. Targets are cast to int32 and
     the mask to float32 first."""
     targets = targets.to(torch.int32).contiguous()
-    if mask.dtype != torch.float64:
-        mask = mask.to(torch.float32)
-    return _MaskedXent.apply(logits.contiguous(), targets, mask.contiguous())
+    mask = mask.to(torch.float32).contiguous()
+    return _MaskedXent.apply(logits.contiguous(), targets, mask)
 
 
 fused_masked_xent.launches = 0
