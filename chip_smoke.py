@@ -15,6 +15,15 @@
    vocabulary 8704 with masked rows), with the allocator's memory set to
    NaN first so that an unwritten output element fails the comparison,
    and the attention backward's dw checked bit-equal across two launches.
+   The two kernels that split images over clusters of blocks (the beam
+   decoder core and the attention backward) also run ragged cases against
+   their plain versions, in bf16 and float32, with the allocator poisoned:
+   B K not a multiple of 16 (B 13 with K 5, K 1 and K 3), odd and single
+   live counts at scattered slots, a fully masked image, B 1 and S 1280;
+   the beam core's h, c, ctx and alpha are checked bit-equal across two
+   launches, and each prints a `phases` line, its per-block breakdown
+   from clock stamps at the ends of its phases. The attention forward is
+   also timed at the train step's shape.
    Each gradient is held to a tolerance set by its typical element, and
    the same tolerance must reject a copy 5% off in its typical elements
    (and, for the cross entropy, a softmax scaled by 1.05). The bf16
@@ -242,6 +251,97 @@ def nvidia_smi_line() -> str:
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+# the kernels that split an image over a cluster of blocks write each
+# block's clock at the ends of its phases into int64 [2B, STAMP_SLOTS]
+CLUSTER_BLOCKS, STAMP_SLOTS = 2, 8
+CORE_PHASES = ("live list + gating", "q product", "q combine (cluster "
+               "barrier)", "scores", "cluster barrier + softmax", "context")
+BWD_PHASES = ("live list + prefetch issue", "value pass + padding rows",
+              "softmax bwd (cluster barrier)", "key pass",
+              "dq, dw combine (cluster barrier)")
+# (B, K, S, live slots an image, fully masked images) of the beam core's
+# ragged cases, and (B, S, live, masked) of the attention backward's
+RAGGED_CORE = ((13, 5, 128, 37, (4,)), (13, 1, 128, 1, ()),
+               (7, 3, 128, 37, (0,)), (1, 5, 128, 37, ()),
+               (3, 5, 1280, 999, (1,)))
+RAGGED_BWD = ((13, 128, 37, (4,)), (5, 128, 1, ()), (1, 104, 37, ()),
+              (3, 1280, 999, (1,)))
+
+
+def scattered_mask(torch, gen, dev, B, S, live, masked=()):
+    """[B, S] float32 with `live` slots at random places in each image and
+    the images in `masked` fully masked."""
+    m = torch.zeros((B, S), device=dev)
+    for b in range(B):
+        m[b, torch.randperm(S, generator=gen, device=dev)[:live]] = 1.0
+    for b in masked:
+        m[b] = 0.0
+    return m
+
+
+def core_inputs(torch, gen, dev, B, K, S, A, H, mask, dt):
+    """Seeded random inputs of the beam decoder core at the model's
+    scales (att_wh Glorot-uniform, as init_params makes it)."""
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                ).to(dt).contiguous()
+    lim = math.sqrt(6.0 / (H + A))
+    return (randn(B, K, 4 * H, scale=2.0), randn(B, K, H), randn(B, S, A),
+            torch.relu(randn(B, S, H)), mask,
+            ((torch.rand((H, A), generator=gen, device=dev) * 2 - 1)
+             * lim).to(dt), randn(A, scale=0.1), randn(A, scale=A ** -0.5))
+
+
+def core_bytes(B, K, S, A, H, mask, sz) -> int:
+    """Bytes the beam core must move: gates, c, the live key and value
+    rows, att_wh and the two vectors read once; h, c, ctx and alpha
+    written."""
+    n_live = int(mask.sum())
+    return ((B * K * 4 * H + B * K * H + n_live * (A + H) + H * A + 2 * A
+             + 3 * B * K * H) * sz + B * S * 4 + B * K * S * 4)
+
+
+def core_ops(B, K, A, H, mask) -> int:
+    n_live = int(mask.sum())
+    return 2 * B * K * H * A + 3 * K * n_live * A + 2 * K * n_live * H
+
+
+def check_core(sm, label, args, dname, live) -> float:
+    """The beam core against its plain version with the allocator
+    poisoned first, its fully masked images exactly 0, and its outputs
+    bit-equal across two launches; returns the max abs error."""
+    torch = sm.torch
+    from cvc_tpu_torch.ops.kernels import decoder_step
+    poison(torch, sm.dev)
+    got = decoder_step.fused_beam_decoder_core(*args)
+    want = decoder_step.beam_core_oracle(*args)
+    err = sm.compare(label, got, want, dname, ("h", "c", "ctx", "alpha"),
+                     {"alpha": alpha_tol(dname, live)})
+    dead = args[4].sum(1) == 0
+    sm.check(bool((got[3][dead] == 0).all() and (got[2][dead] == 0).all()),
+             f"{label}: {int(dead.sum())} fully masked image(s) give alpha "
+             f"= 0, ctx = 0")
+    again = decoder_step.fused_beam_decoder_core(*args)
+    sm.check(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+             f"{label}: h, c, ctx, alpha bit-equal across two launches")
+    return err
+
+
+def phase_line(sm, label, stamps, phases) -> None:
+    """Prints the per-block phase breakdown of one launch from its clock
+    stamps: each phase's mean and max over the blocks, in us at the SM
+    clock rate that `Smoke.cycles_per_ms` measured."""
+    sm.torch.cuda.synchronize()
+    st = stamps[:, :len(phases) + 1].double()
+    us = (st[:, 1:] - st[:, :-1]) / (sm.cycles_per_ms() / 1e3)
+    total = (st[:, -1] - st[:, 0]) / (sm.cycles_per_ms() / 1e3)
+    parts = [f"{name} {float(us[:, i].mean()):.2f}/{float(us[:, i].max()):.2f}"
+             for i, name in enumerate(phases)]
+    print(f"phases {label}: per block mean/max us: " + ", ".join(parts)
+          + f"; block total {float(total.mean()):.2f}/"
+          f"{float(total.max()):.2f} ({stamps.shape[0]} blocks, "
+          f"{sm.cycles_per_ms() / 1e3:.1f} cycles/us)", flush=True)
+
 def kernel_phase(sm: Smoke, results: dict) -> None:
     torch = sm.torch
     from cvc_tpu_torch.ops.kernels import attention, decoder_step, lstm
@@ -305,36 +405,32 @@ def kernel_phase(sm: Smoke, results: dict) -> None:
         for S, live, key in ((128, LIVE_REGIONS, "fused_beam_decoder_core"),
                              (1280, 10 * LIVE_REGIONS, None)):
             K = BEAM
-            lim = math.sqrt(6.0 / (H + A))
-
-            def mk_core():
-                return (randn(B, K, 4 * H, scale=2.0, dtype=dt),
-                        randn(B, K, H, dtype=dt), randn(B, S, A, dtype=dt),
-                        torch.relu(randn(B, S, H)).to(dt),
-                        mask_for(B, S, live),
-                        ((torch.rand((H, A), generator=gen, device=sm.dev)
-                          * 2 - 1) * lim).to(dt),
-                        randn(A, scale=0.1, dtype=dt),
-                        randn(A, scale=A ** -0.5, dtype=dt))
-            n_live = int(mask_for(B, S, live).sum())
-            bytes_ = ((B * K * 4 * H + B * K * H + n_live * (A + H) + H * A
-                       + 2 * A + 3 * B * K * H) * sz
-                      + B * S * 4 + B * K * S * 4)
-            ops = (2 * B * K * H * A + 3 * K * n_live * A
-                   + 2 * K * n_live * H)
-            sets = [mk_core() for _ in range(n_sets(bytes_))]
-            got = decoder_step.fused_beam_decoder_core(*sets[0])
-            want = decoder_step.beam_core_oracle(*sets[0])
+            mask = mask_for(B, S, live)
+            sets = [core_inputs(torch, gen, sm.dev, B, K, S, A, H, mask, dt)
+                    for _ in range(n_sets(core_bytes(B, K, S, A, H, mask,
+                                                      sz)))]
             label = f"fused_beam_decoder_core {dname} B={B} K={K} S={S}"
-            err = sm.compare(label, got, want, dname,
-                             ("h", "c", "ctx", "alpha"),
-                             {"alpha": alpha_tol(dname, live)})
-            sm.check(bool((got[3][3] == 0).all() and (got[2][3] == 0).all()),
-                     f"{label}: fully masked image gives alpha = 0, ctx = 0")
+            err = check_core(sm, label, sets[0], dname, live)
+            if S == 128:
+                stamps = torch.zeros((CLUSTER_BLOCKS * B, STAMP_SLOTS),
+                                     dtype=torch.int64, device=sm.dev)
+                decoder_step.fused_beam_decoder_core(*sets[0], stamps=stamps)
+                phase_line(sm, label, stamps, CORE_PHASES)
             record(sm, results, key if dname == "bfloat16" else None,
                    f"B={B} K={K} S={S} A={A} H={H}", dname,
                    decoder_step.fused_beam_decoder_core,
-                   decoder_step.beam_core_oracle, sets, bytes_, ops, err)
+                   decoder_step.beam_core_oracle, sets,
+                   core_bytes(B, K, S, A, H, mask, sz),
+                   core_ops(B, K, A, H, mask), err)
+        # ragged shapes: B K not a multiple of 16, K 1 and 3, odd and
+        # single live counts at scattered slots, a fully masked image, an
+        # image alone, the video width
+        for B_, K, S, live, masked in RAGGED_CORE:
+            mask = scattered_mask(torch, gen, sm.dev, B_, S, live, masked)
+            check_core(sm, f"fused_beam_decoder_core {dname} B={B_} K={K} "
+                           f"S={S} live={live} masked={list(masked)}",
+                       core_inputs(torch, gen, sm.dev, B_, K, S, A, H, mask,
+                                   dt), dname, live)
 
         # row 8: top-k + lse over V = 8704; beam N = 320, k = 5; greedy
         # N = 64, k = 1. The serving path feeds float32 logits.
@@ -419,6 +515,54 @@ def perturb_typical(want):
     return torch.where(w.abs() <= typical(want), w * 1.05, w)
 
 
+def bwd_inputs(torch, gen, dev, B, S, A, H, mask, dt):
+    """Seeded random residuals and incoming gradients of the attention
+    backward, alpha from the forward's plain version."""
+    from cvc_tpu_torch.ops.kernels import attention
+
+    def randn(*shape, scale=1.0, dtype=dt):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                ).to(dtype).contiguous()
+    keys = randn(B, S, A)
+    q = randn(B, A, scale=0.5)
+    w = randn(A, scale=A ** -0.5)
+    v = torch.relu(randn(B, S, H))
+    alpha = attention.additive_attention_plain(keys, q, w, v, mask)[1]
+    return (keys, q, w, v, mask, alpha, randn(B, H),
+            randn(B, S, scale=0.1, dtype=torch.float32))
+
+
+def check_bwd(sm, label, args, dname) -> float:
+    """The attention backward against its plain version with the allocator
+    poisoned first: each gradient within `grad_tol`, which must reject a
+    copy 5% off; dkeys, dq and dv exactly 0 where nothing is live; dw
+    bit-equal across two launches. Returns the max abs error."""
+    torch = sm.torch
+    from cvc_tpu_torch.ops.kernels import attention
+    poison(torch, sm.dev)
+    got = attention.fused_additive_attention_bwd(*args)
+    want = attention.additive_attention_bwd_plain(*args)
+    names = ("dkeys", "dq", "dw", "dv")
+    tols = {n: grad_tol(dname, w) for n, w in zip(names, want)}
+    err = sm.compare(label, got, want, dname, names, tols)
+    for n, w in zip(names, want):
+        if typical(w) > 0:
+            sm.rejects(f"{label} {n} with its typical elements 5% off",
+                       perturb_typical(w), w, *tols[n])
+    mask = args[4]
+    dead_slot, dead_img = mask == 0, mask.sum(1) == 0
+    sm.check(bool((got[0][dead_slot] == 0).all()
+                  and (got[3][dead_slot] == 0).all()
+                  and (got[1][dead_img] == 0).all()),
+             f"{label}: dkeys, dv are 0 on the {int(dead_slot.sum())} "
+             f"padding slots and dq on the {int(dead_img.sum())} fully "
+             f"masked image(s)")
+    again = attention.fused_additive_attention_bwd(*args)
+    sm.check(bool(torch.equal(got[2], again[2])),
+             f"{label}: dw bit-equal across two launches")
+    return err
+
+
 def train_kernel_phase(sm: Smoke, results: dict) -> None:
     """The training slice's kernels against their plain versions at the
     c3 training shapes (B = 64 rows, and 2B = 128 for the merged
@@ -467,46 +611,49 @@ def train_kernel_phase(sm: Smoke, results: dict) -> None:
             mask = torch.zeros((B, S), device=sm.dev)
             mask[:, :live] = 1.0
             mask[3] = 0.0
-
-            def mk_attn():
-                keys = randn(B, S, A, dtype=dt)
-                q = randn(B, A, scale=0.5, dtype=dt)
-                w = randn(A, scale=A ** -0.5, dtype=dt)
-                v = torch.relu(randn(B, S, H)).to(dt)
-                alpha = attention.additive_attention_plain(keys, q, w, v,
-                                                           mask)[1]
-                return (keys, q, w, v, mask, alpha, randn(B, H, dtype=dt),
-                        randn(B, S, scale=0.1))
             n_live = int(mask.sum())
             bytes_ = ((n_live * (A + H) + B * S * (A + H) + 2 * B * A
                        + 2 * A + B * H) * sz + 3 * B * S * 4)
             ops = n_live * (12 * A + 4 * H)
-            sets = [mk_attn() for _ in range(n_sets(bytes_))]
-            poison(torch, sm.dev)
-            got = attention.fused_additive_attention_bwd(*sets[0])
-            want = attention.additive_attention_bwd_plain(*sets[0])
-            names = ("dkeys", "dq", "dw", "dv")
+            sets = [bwd_inputs(torch, gen, sm.dev, B, S, A, H, mask, dt)
+                    for _ in range(n_sets(bytes_))]
             label = f"fused_additive_attention_bwd {dname} B={B} S={S}"
-            tols = {n: grad_tol(dname, w) for n, w in zip(names, want)}
-            err = sm.compare(label, got, want, dname, names, tols)
-            for n, w in zip(names, want):
-                sm.rejects(f"{label} {n} with its typical elements 5% off",
-                           perturb_typical(w), w, *tols[n])
-            sm.check(bool((got[0][3] == 0).all() and (got[1][3] == 0).all()
-                          and (got[3][3] == 0).all()
-                          and (got[0][:, live:] == 0).all()
-                          and (got[3][:, live:] == 0).all()),
-                     f"{label}: dkeys, dq, dv are 0 on the fully masked "
-                     f"image and on the padding slots")
-            again = attention.fused_additive_attention_bwd(*sets[0])
-            sm.check(bool(torch.equal(got[2], again[2])),
-                     f"{label}: dw bit-equal across two launches")
+            err = check_bwd(sm, label, sets[0], dname)
+            if B == TRAIN_BATCH:
+                stamps = torch.zeros((CLUSTER_BLOCKS * B, STAMP_SLOTS),
+                                     dtype=torch.int64, device=sm.dev)
+                attention.fused_additive_attention_bwd(*sets[0],
+                                                       stamps=stamps)
+                phase_line(sm, label, stamps, BWD_PHASES)
             key = ("fused_additive_attention_bwd" if dname == "float32"
                    and B == TRAIN_BATCH else None)
             record(sm, results, key, f"B={B} S={S} A={A} H={H}", dname,
                    attention.fused_additive_attention_bwd,
                    attention.additive_attention_bwd_plain, sets, bytes_,
                    ops, err)
+            if B == TRAIN_BATCH:
+                # row 3, the forward, at the train step's shape
+                fsets = [a[:5] for a in sets]
+                got = attention.fused_additive_attention(*fsets[0])
+                want = attention.additive_attention_plain(*fsets[0])
+                err = sm.compare(f"fused_additive_attention {dname} B={B} "
+                                 f"S={S}", got, want, dname,
+                                 ("ctx", "alpha"),
+                                 {"alpha": alpha_tol(dname, live)})
+                record(sm, results, None, f"B={B} S={S} A={A} H={H} "
+                       f"(train step)", dname,
+                       attention.fused_additive_attention,
+                       attention.additive_attention_plain, fsets,
+                       (n_live * (A + H) + B * A + A + B * H) * sz
+                       + 2 * B * S * 4, n_live * (3 * A + 2 * H), err)
+        # ragged shapes: odd and single live counts at scattered slots, a
+        # fully masked image, an image alone, the video width
+        for B, S_, live_, masked in RAGGED_BWD:
+            mask = scattered_mask(torch, gen, sm.dev, B, S_, live_, masked)
+            check_bwd(sm, f"fused_additive_attention_bwd {dname} B={B} "
+                          f"S={S_} live={live_} masked={list(masked)}",
+                      bwd_inputs(torch, gen, sm.dev, B, S_, A, H, mask, dt),
+                      dname)
 
         # rows 5 and 6: masked cross entropy, N = 64 * 21 and 128 * 21,
         # V = 8704; about 40% of the rows masked (steps after a caption's
@@ -662,6 +809,12 @@ def reject_phase(sm: Smoke) -> None:
         "fused_beam_decoder_core A=24": lambda: core(a=24),
         "fused_beam_decoder_core misaligned keys": lambda: core(
             keys=off(B, S, A)),
+        # each block of the cluster takes H / 2 in 16-byte vectors: H a
+        # multiple of 64 bytes (40 floats is 10 vectors, 160 bytes)
+        "fused_beam_decoder_core H=40": lambda: (
+            decoder_step.fused_beam_decoder_core(
+                z(B, K, 160), z(B, K, 40), z(B, S, A), z(B, S, 40), m,
+                z(40, A), z(A), z(A))),
         "fused_topk_lse V=131": lambda: topk_select.fused_topk_lse(
             z(4, 131), 2),
         "fused_topk_lse misaligned logits": lambda: (
@@ -674,6 +827,11 @@ def reject_phase(sm: Smoke) -> None:
         "fused_additive_attention_bwd A=18": lambda: (
             attention.fused_additive_attention_bwd(
                 z(B, S, 18), z(B, 18), z(18), z(B, S, H), m, m, z(B, H))),
+        # one column group a thread: A at most 512 vectors (2048 floats)
+        "fused_additive_attention_bwd A=2052": lambda: (
+            attention.fused_additive_attention_bwd(
+                z(B, S, 2052), z(B, 2052), z(2052), z(B, S, H), m, m,
+                z(B, H))),
         "fused_additive_attention_bwd misaligned v": lambda: (
             attention.fused_additive_attention_bwd(
                 z(B, S, A), z(B, A), z(A), off(B, S, H), m, m, z(B, H))),

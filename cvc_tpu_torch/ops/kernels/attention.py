@@ -13,8 +13,10 @@ its VJP:
 
 The backward takes the residuals (keys, q, w, v, mask, alpha), recomputes
 tanh(keys + q) and rounds where the Pallas `_bwd_kernel` rounds. On the
-card both directions are bound by bytes: one thread block per image reads
-each live key row and value row once; see the sources for the design.
+card both directions are bound by bytes and read each live key row and
+value row once: the forward with one thread block per image, the backward
+with a cluster of two blocks per image whose key rows the Tensor Memory
+Accelerator prefetches; see the sources for the design.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ import torch
 
 from cvc_tpu_torch.ops.kernels import build
 from cvc_tpu_torch.ops.primitives import masked_softmax, upcast
+
+MAX_BWD_A_VECTORS = 512   # the backward's threads a block: a column group each
 
 
 def additive_attention_plain(keys, q, w, v, mask):
@@ -90,15 +94,18 @@ def _attention_fwd(keys, q, w, v, mask):
 
 
 def fused_additive_attention_bwd(keys, q, w, v, mask, alpha, g_ctx,
-                                 g_alpha=None):
+                                 g_alpha=None, stamps=None):
     """The forward's inputs, its alpha [B,S] float32, g_ctx [B,H] and
     g_alpha [B,S] float32 (None: zero) -> (dkeys [B,S,A], dq [B,A],
     dw [A], dv [B,S,H]) in the types of keys, q, w and v.
 
     CPU tensors take `additive_attention_bwd_plain`; CUDA tensors launch
-    the kernel, with the forward kernel's width and alignment rules and
-    g_ctx in the working type. dw is summed over the images in a fixed
-    order, so equal inputs give bit-equal dw."""
+    the kernel, with the forward kernel's width and alignment rules, A at
+    most 512 16-byte vectors (one column group a thread) and g_ctx in the
+    working type. dw is summed over the images in a fixed order, so equal
+    inputs give bit-equal dw. `stamps`, an int64 CUDA tensor
+    [2B, STAMP_SLOTS] or None, receives each block's clock at the ends of
+    its phases (the breakdown chip_smoke.py prints)."""
     ins = (keys, q, w, v, mask, alpha, g_ctx)
     f32 = {"alpha": alpha}
     if g_alpha is not None:
@@ -114,14 +121,19 @@ def fused_additive_attention_bwd(keys, q, w, v, mask, alpha, g_ctx,
         raise ValueError(f"{name}: alpha {tuple(alpha.shape)}, g_ctx "
                          f"{tuple(g_ctx.shape)} do not agree with B={B}, "
                          f"S={S}, H={H}")
+    vec = build.vector_elems(keys)
+    if A > MAX_BWD_A_VECTORS * vec:
+        raise ValueError(f"{name}: A={A} is above {MAX_BWD_A_VECTORS * vec}, "
+                         f"{MAX_BWD_A_VECTORS} 16-byte vectors")
+    build.check_stamps(name, stamps, B, dev)
     dkeys = torch.empty_like(keys)
     dq = torch.empty_like(q)
     dw = torch.empty_like(w)
     dv = torch.empty_like(v)
     dw_part = torch.empty((B, A), dtype=torch.float32, device=dev)
     build.launch("cvc_additive_attention_bwd", keys, q, w, v, mask, alpha,
-                 g_ctx, g_alpha, dkeys, dq, dw, dv, dw_part, B, S, A, H,
-                 build.dtype_code(name, keys.dtype))
+                 g_ctx, g_alpha, dkeys, dq, dw, dv, dw_part, stamps, B, S, A,
+                 H, build.dtype_code(name, keys.dtype))
     fused_additive_attention_bwd.launches += 1
     return dkeys, dq, dw, dv
 

@@ -40,14 +40,18 @@ SIGNATURES = {
     "cvc_lstm_gates_fwd": [_P, _P, _P, _P, _I, _I, _I, _P],
     "cvc_lstm_gates_bwd": [_P] * 6 + [_I] * 3 + [_P],
     "cvc_additive_attention_fwd": [_P] * 7 + [_I] * 5 + [_P],
-    "cvc_additive_attention_bwd": [_P] * 13 + [_I] * 5 + [_P],
+    "cvc_additive_attention_bwd": [_P] * 14 + [_I] * 5 + [_P],
     "cvc_masked_xent_fwd": [_P] * 4 + [_I] * 3 + [_P],
     "cvc_masked_xent_bwd": [_P] * 5 + [_I] * 3 + [_P],
-    "cvc_beam_decoder_core": [_P] * 12 + [_I] * 6 + [_P],
+    "cvc_beam_decoder_core": [_P] * 13 + [_I] * 6 + [_P],
     "cvc_topk_lse": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernels that split an image over a cluster (csrc/row_ring.cuh):
+# blocks an image, and clock stamps a block writes when asked for them
+CLUSTER_BLOCKS = 2
+STAMP_SLOTS = 8
 
 _lock = threading.Lock()
 _lib = None
@@ -186,6 +190,18 @@ def check_vectors(name: str, tensors: dict, widths: dict) -> None:
         if value % multiple:
             raise ValueError(f"{name}: {width}={value} is not a multiple of "
                              f"{multiple}, the kernel's vector width")
+
+
+def check_stamps(name: str, stamps, B: int, device) -> None:
+    """Raise ValueError unless `stamps` is None or an int64 tensor
+    [CLUSTER_BLOCKS * B, STAMP_SLOTS] on `device`, where a cluster kernel
+    writes each block's clock at the ends of its phases."""
+    if stamps is None:
+        return
+    check_cuda(name, {"stamps": stamps}, dtype=torch.int64, device=device)
+    if stamps.shape != (CLUSTER_BLOCKS * B, STAMP_SLOTS):
+        raise ValueError(f"{name}: stamps {tuple(stamps.shape)}, expected "
+                         f"({CLUSTER_BLOCKS * B}, {STAMP_SLOTS})")
 
 
 def dtype_code(name: str, dtype: torch.dtype) -> int:

@@ -11,10 +11,11 @@ the middle of one beam-search step for the K beams of each image,
     ctx          = alpha @ v_enc                        float32 sums
 
 with keys [B,S,A] and v_enc [B,S,H] shared by the K beams, never repeated
-K times. On the card the work is bound by bytes: one thread block per
-image streams each live key and value row once for all K beams, and the
-q and ctx products run inside the kernel; see the source for the design.
-Inference only: generation needs no gradient.
+K times. On the card the work is bound by bytes: a cluster of two thread
+blocks takes each image, the Tensor Memory Accelerator brings each live
+key and value row into shared memory once for all K beams, and the q
+product runs on the tensor cores (bf16) inside the kernel; see the source
+for the design. Inference only: generation needs no gradient.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from cvc_tpu_torch.ops.kernels import build
 from cvc_tpu_torch.ops.primitives import masked_softmax
 
 MAX_BEAMS = 8
+MAX_H_VECTORS = 1024   # H / 2 in 16-byte vectors: one column a thread
 
 
 def beam_core_oracle(gates1, c_att, keys, v_enc, region_mask,
@@ -51,15 +53,18 @@ def beam_core_oracle(gates1, c_att, keys, v_enc, region_mask,
 
 
 def fused_beam_decoder_core(gates1, c_att, keys, v_enc, region_mask,
-                            att_wh, att_b, att_w):
+                            att_wh, att_b, att_w, stamps=None):
     """gates1 [B,K,4H], c_att [B,K,H], keys [B,S,A], v_enc [B,S,H],
     region_mask [B,S] float32, att_wh [H,A], att_b [A], att_w [A]
     -> (h_att [B,K,H], c_att [B,K,H], ctx [B,K,H], alpha [B,K,S] float32).
 
     CPU tensors take `beam_core_oracle`; CUDA tensors launch the kernel,
-    which takes K <= 8, one working type for every tensor but the mask, H
-    a multiple of 16 bytes of elements, A a multiple of 64 bytes of
-    elements, and 16-byte aligned inputs."""
+    which takes K <= 8, one working type for every tensor but the mask, A
+    and H multiples of 64 bytes of elements (each block of an image's
+    cluster takes half of H, in whole 16-row steps of the bf16 product), H
+    at most 1024 16-byte vectors, and 16-byte aligned inputs. `stamps`, an
+    int64 CUDA tensor [2B, STAMP_SLOTS] or None, receives each block's
+    clock at the ends of its phases (the breakdown chip_smoke.py prints)."""
     args = (gates1, c_att, keys, v_enc, region_mask, att_wh, att_b, att_w)
     if build.on_cpu(*args):
         return beam_core_oracle(*args)
@@ -85,13 +90,17 @@ def fused_beam_decoder_core(gates1, c_att, keys, v_enc, region_mask,
     build.check_vectors(
         name, {"gates1": gates1, "c_att": c_att, "keys": keys,
                "v_enc": v_enc, "att_wh": att_wh},
-        {"A": (A, 4 * vec), "H": (H, vec)})
+        {"A": (A, 4 * vec), "H": (H, 4 * vec)})
+    if H > MAX_H_VECTORS * vec:
+        raise ValueError(f"{name}: H={H} is above {MAX_H_VECTORS * vec}, "
+                         f"{MAX_H_VECTORS} 16-byte vectors")
+    build.check_stamps(name, stamps, B, dev)
     h = torch.empty_like(c_att)
     c = torch.empty_like(c_att)
     ctx = torch.empty((B, K, H), dtype=v_enc.dtype, device=dev)
     alpha = torch.empty((B, K, S), dtype=torch.float32, device=dev)
     build.launch("cvc_beam_decoder_core", gates1, c_att, keys, v_enc,
-                 region_mask, att_wh, att_b, att_w, h, c, ctx, alpha,
+                 region_mask, att_wh, att_b, att_w, h, c, ctx, alpha, stamps,
                  B, K, S, A, H, build.dtype_code(name, keys.dtype))
     fused_beam_decoder_core.launches += 1
     return h, c, ctx, alpha

@@ -13,7 +13,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROBE = """
 import importlib, pkgutil, sys
 import cvc_tpu_torch
-names = ["chip_smoke"]
+names = ["chip_smoke", "kernel_ab"]
 for m in pkgutil.walk_packages(cvc_tpu_torch.__path__, "cvc_tpu_torch."):
     names.append(m.name)
 for name in names:

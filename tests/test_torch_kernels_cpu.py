@@ -54,6 +54,17 @@ def _mask(rng, B, S, empty=()):
     return mask
 
 
+def _mask_live(rng, B, S, live, empty=()):
+    """`live` live slots at random places in each image; `empty` images
+    fully masked."""
+    mask = np.zeros((B, S), np.float32)
+    for b in range(B):
+        mask[b, rng.permutation(S)[:live]] = 1.0
+    for b in empty:
+        mask[b] = 0.0
+    return mask
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_lstm_gates_plain_matches_pallas(dtype):
     rng = np.random.default_rng(1)
@@ -87,15 +98,26 @@ def test_additive_attention_plain_matches_pallas(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,K,empty", [(6, 5, (1,)), (3, 2, ())])
-def test_beam_core_oracle_matches_pallas(B, K, empty, dtype):
+@pytest.mark.parametrize("B,K,empty,live", [
+    pytest.param(6, 5, (1,), None, id="6-5-empty0"),
+    pytest.param(3, 2, (), None, id="3-2-empty1"),
+    # the CUDA kernel's ragged cases, at S 128, A 64, H 128: B K not a
+    # multiple of 16, one beam, odd and single live counts at scattered
+    # slots, a fully masked image, an image alone
+    pytest.param(13, 5, (4,), 37, id="B13-K5-live37"),
+    pytest.param(13, 1, (), 1, id="B13-K1-live1"),
+    pytest.param(7, 3, (0,), 37, id="B7-K3-live37"),
+    pytest.param(1, 5, (), 37, id="B1-K5-live37"),
+])
+def test_beam_core_oracle_matches_pallas(B, K, empty, live, dtype):
     """B not a multiple of the Pallas batch block (8), with and without a
     fully masked image."""
     rng = np.random.default_rng(B * 10 + K)
-    S, A, H = 16, 32, 24
+    S, A, H = (16, 32, 24) if live is None else (128, 64, 128)
     f = lambda *s: rng.normal(size=s).astype(np.float32)
     ins = [f(B, K, 4 * H), f(B, K, H), f(B, S, A), f(B, S, H)]
-    mask = _mask(rng, B, S, empty=empty)
+    mask = (_mask(rng, B, S, empty=empty) if live is None
+            else _mask_live(rng, B, S, live, empty))
     wts = [f(H, A), f(A), f(A)]
     j_ins = [_pair(x, dtype)[0] for x in ins]
     t_ins = [_pair(x, dtype)[1] for x in ins]
@@ -226,18 +248,36 @@ def test_lstm_gates_bwd_plain_matches_pallas_vjp(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("with_g_alpha", [True, False])
-def test_additive_attention_bwd_plain_matches_pallas_vjp(dtype, with_g_alpha):
+@pytest.mark.parametrize("with_g_alpha,ragged", [
+    pytest.param(True, None, id="True"),
+    pytest.param(False, None, id="False"),
+    # the CUDA kernel's ragged cases (B, S, live slots, fully masked
+    # images) at the widths above: odd and single live counts at scattered
+    # slots, a fully masked image, an image alone. The Pallas kernel sums dq
+    # over the rows in bf16 and adds each grid step's dw into a bf16
+    # output, errors that grow with the rows and images summed; 9 live rows
+    # in 5 images keep them inside the bf16 tolerance (on the card the
+    # kernel meets the plain version, which sums in float32, at 37 in 13).
+    pytest.param(True, (5, 128, 9, (2,)), id="B5-S128-live9"),
+    pytest.param(True, (5, 128, 1, ()), id="B5-S128-live1"),
+    pytest.param(False, (1, 104, 37, ()), id="B1-S104-live37"),
+])
+def test_additive_attention_bwd_plain_matches_pallas_vjp(dtype, with_g_alpha,
+                                                         ragged):
     """B = 6 is not a multiple of the Pallas batch block (4), image 2 is
     fully masked, and alpha gets a gradient of its own or none (zero)."""
     rng = np.random.default_rng(12)
-    B, S, A, H = 6, 16, 32, 24
+    if ragged is None:
+        (B, S, A, H), empty = (6, 16, 32, 24), (2,)
+    else:
+        (B, S, live, empty), (A, H) = ragged, (32, 24)
     f = lambda *s: rng.normal(size=s).astype(np.float32)
     jk, tk = _pair(f(B, S, A), dtype)
     jq, tq = _pair(f(B, A), dtype)
     jw, tw = _pair(f(A), dtype)
     jv, tv = _pair(f(B, S, H), dtype)
-    mask = _mask(rng, B, S, empty=(2,))
+    mask = (_mask(rng, B, S, empty=empty) if ragged is None
+            else _mask_live(rng, B, S, live, empty))
     jgc, tgc = _pair(f(B, H), dtype)
     ga = f(B, S) if with_g_alpha else np.zeros((B, S), np.float32)
     jm, tm = jnp.asarray(mask), torch.from_numpy(mask)
@@ -252,8 +292,9 @@ def test_additive_attention_bwd_plain_matches_pallas_vjp(dtype, with_g_alpha):
                              (tk, tq, tw, tv)):
         assert g.dtype == t.dtype and g.shape == t.shape, name
         _close(g, w, GRAD_TOL, dtype, name)
-    assert (got[0][2] == 0).all() and (got[3][2] == 0).all()
-    assert (got[1][2] == 0).all()
+    for b in empty:
+        assert (got[0][b] == 0).all() and (got[3][b] == 0).all()
+        assert (got[1][b] == 0).all()
 
 
 def _xent_inputs(rng, N, V, dtype):
