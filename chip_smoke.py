@@ -15,15 +15,18 @@
    vocabulary 8704 with masked rows), with the allocator's memory set to
    NaN first so that an unwritten output element fails the comparison,
    and the attention backward's dw checked bit-equal across two launches.
-   The two kernels that split images over clusters of blocks (the beam
-   decoder core and the attention backward) also run ragged cases against
-   their plain versions, in bf16 and float32, with the allocator poisoned:
-   B K not a multiple of 16 (B 13 with K 5, K 1 and K 3), odd and single
-   live counts at scattered slots, a fully masked image, B 1 and S 1280;
-   the beam core's h, c, ctx and alpha are checked bit-equal across two
+   The three kernels that split images over clusters of blocks (the beam
+   decoder core and the attention forward and backward) also run ragged
+   cases against their plain versions, in bf16 and float32, with the
+   allocator poisoned: B K not a multiple of 16 (B 13 with K 5, K 1 and
+   K 3), odd and single live counts at scattered slots, a fully masked
+   image, B 1 and S 1280; the beam core's h, c, ctx and alpha and the
+   attention forward's ctx and alpha are checked bit-equal across two
    launches, and each prints a `phases` line, its per-block breakdown
    from clock stamps at the ends of its phases. The attention forward is
-   also timed at the train step's shape.
+   also checked and timed at the train step's shape, and the LSTM gates
+   forward at R 1, 13, 64 and 128, with a launch that has nothing in it
+   (R 1, H 8) timed beside it as the floor of a launch's time.
    Each gradient is held to a tolerance set by its typical element, and
    the same tolerance must reject a copy 5% off in its typical elements
    (and, for the cross entropy, a softmax scaled by 1.05). The bf16
@@ -259,13 +262,19 @@ CORE_PHASES = ("live list + gating", "q product", "q combine (cluster "
 BWD_PHASES = ("live list + prefetch issue", "value pass + padding rows",
               "softmax bwd (cluster barrier)", "key pass",
               "dq, dw combine (cluster barrier)")
+FWD_PHASES = ("live list + partner started", "scores", "cluster barrier",
+              "softmax", "context rows", "context combine + store")
 # (B, K, S, live slots an image, fully masked images) of the beam core's
-# ragged cases, and (B, S, live, masked) of the attention backward's
+# ragged cases, and (B, S, live, masked) of the attention backward's and
+# forward's
 RAGGED_CORE = ((13, 5, 128, 37, (4,)), (13, 1, 128, 1, ()),
                (7, 3, 128, 37, (0,)), (1, 5, 128, 37, ()),
                (3, 5, 1280, 999, (1,)))
 RAGGED_BWD = ((13, 128, 37, (4,)), (5, 128, 1, ()), (1, 104, 37, ()),
               (3, 1280, 999, (1,)))
+RAGGED_FWD = ((13, 128, 37, (4,)), (5, 128, 1, ()), (1, 104, 37, ()),
+              (3, 1280, 999, (1,)))
+LSTM_ROWS = (1, 13, BATCH, 2 * BATCH)        # R of the LSTM forward's cases
 
 
 def scattered_mask(torch, gen, dev, B, S, live, masked=()):
@@ -327,6 +336,34 @@ def check_core(sm, label, args, dname, live) -> float:
     return err
 
 
+def check_fwd(sm, label, args, dname, live, phases=False) -> float:
+    """The attention forward against its plain version with the allocator
+    poisoned first, its fully masked images exactly 0, and ctx and alpha
+    bit-equal across two launches (with `phases`, the second writes its
+    clock stamps, printed as a `phases` line); returns the max abs
+    error."""
+    torch = sm.torch
+    from cvc_tpu_torch.ops.kernels import attention
+    poison(torch, sm.dev)
+    got = attention.fused_additive_attention(*args)
+    want = attention.additive_attention_plain(*args)
+    err = sm.compare(label, got, want, dname, ("ctx", "alpha"),
+                     {"alpha": alpha_tol(dname, live)})
+    dead = args[4].sum(1) == 0
+    sm.check(bool((got[1][dead] == 0).all() and (got[0][dead] == 0).all()),
+             f"{label}: {int(dead.sum())} fully masked image(s) give alpha "
+             f"= 0, ctx = 0")
+    stamps = (torch.zeros((CLUSTER_BLOCKS * args[0].shape[0], STAMP_SLOTS),
+                          dtype=torch.int64, device=sm.dev)
+              if phases else None)
+    again = attention.fused_additive_attention(*args, stamps=stamps)
+    sm.check(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+             f"{label}: ctx, alpha bit-equal across two launches")
+    if phases:
+        phase_line(sm, label, stamps, FWD_PHASES)
+    return err
+
+
 def phase_line(sm, label, stamps, phases) -> None:
     """Prints the per-block phase breakdown of one launch from its clock
     stamps: each phase's mean and max over the blocks, in us at the SM
@@ -341,6 +378,31 @@ def phase_line(sm, label, stamps, phases) -> None:
           + f"; block total {float(total.mean()):.2f}/"
           f"{float(total.max()):.2f} ({stamps.shape[0]} blocks, "
           f"{sm.cycles_per_ms() / 1e3:.1f} cycles/us)", flush=True)
+
+def lstm_library(sm, label, args, want, dname):
+    """`torch._thnn_fused_lstm_cell` as the yardstick of the LSTM gates
+    forward, where this PyTorch has it and it agrees with the plain
+    version on `args`; else None. It reads a second gate tensor (the
+    hidden-to-hidden product, zeros here), 4/7 more bytes than the
+    kernel. Timed only: the port never calls it."""
+    torch = sm.torch
+    cell = getattr(torch, "_thnn_fused_lstm_cell", None)
+    if cell is None:
+        return None
+    zeros = torch.zeros_like(args[0])
+
+    def library(gates, c):
+        return cell(gates, zeros, c)[:2]
+    try:
+        got = library(*args)
+    except RuntimeError as e:
+        print(f"{label}: torch._thnn_fused_lstm_cell raises: "
+              f"{str(e).splitlines()[0][:100]}", flush=True)
+        return None
+    atol, rtol = TOL[dname]["default"]
+    ok = all(sm.within(g, w, atol, rtol) for g, w in zip(got, want))
+    return library if ok else None
+
 
 def kernel_phase(sm: Smoke, results: dict) -> None:
     torch = sm.torch
@@ -363,43 +425,49 @@ def kernel_phase(sm: Smoke, results: dict) -> None:
     for dname, dt in dtypes.items():
         sz = torch.tensor([], dtype=dt).element_size()
 
-        # row 1: LSTM gates, greedy rows R = 64, H = 1024
-        R, H = BATCH, 1024
-        mk = lambda: (randn(R, 4 * H, scale=2.0, dtype=dt),
-                      randn(R, H, dtype=dt))
-        per_set = R * H * 7 * sz
-        sets = [mk() for _ in range(n_sets(per_set))]
-        err = sm.compare(f"fused_lstm_gates {dname} R={R} H={H}",
-                         lstm.fused_lstm_gates(*sets[0]),
-                         lstm.lstm_gates_plain(*sets[0]), dname, ("h", "c"))
-        record(sm, results, "fused_lstm_gates" if dname == "bfloat16" else None,
-               f"R={R} H={H}", dname, lstm.fused_lstm_gates,
-               lstm.lstm_gates_plain, sets, per_set, R * H * 10, err)
+        # row 1: LSTM gates forward, H = 1024: the greedy and train rows
+        # R = 64, the merged scan's 128, and R = 1 and 13; then R = 1,
+        # H = 8, a launch with nothing in it: the floor of a launch's time
+        H = 1024
+        for R, H_ in (*((r, H) for r in LSTM_ROWS), (1, 8)):
+            per_set = R * H_ * 7 * sz
+            sets = [lstm_inputs(torch, gen, sm.dev, R, H_, dt)
+                    for _ in range(min(128, n_sets(per_set)))]
+            label = f"fused_lstm_gates {dname} R={R} H={H_}"
+            poison(torch, sm.dev)
+            got = lstm.fused_lstm_gates(*sets[0])
+            want = lstm.lstm_gates_plain(*sets[0])
+            err = sm.compare(label, got, want, dname, ("h", "c"))
+            library = lstm_library(sm, label, sets[0], want, dname)
+            key = ("fused_lstm_gates" if dname == "bfloat16" and R == BATCH
+                   else None)
+            record(sm, results, key, f"R={R} H={H_}"
+                   + (" (launch floor)" if H_ == 8 else ""), dname,
+                   lstm.fused_lstm_gates, lstm.lstm_gates_plain, sets,
+                   per_set, R * H_ * 10, err, library=library)
 
         # row 3: additive attention, greedy B = 64, S = 128 (100 live)
         B, S, A, H = BATCH, 128, 512, 1024
         live = LIVE_REGIONS
-
-        def mk_attn():
-            return (randn(B, S, A, dtype=dt), randn(B, A, scale=0.5, dtype=dt),
-                    randn(A, scale=A ** -0.5, dtype=dt),
-                    torch.relu(randn(B, S, H)).to(dt), mask_for(B, S, live))
-        n_live = int(mask_for(B, S, live).sum())     # live rows read
-        bytes_ = (n_live * (A + H) + B * A + A + B * H) * sz + 2 * B * S * 4
-        sets = [mk_attn() for _ in range(n_sets(bytes_))]
-        got = attention.fused_additive_attention(*sets[0])
-        want = attention.additive_attention_plain(*sets[0])
-        err = sm.compare(f"fused_additive_attention {dname} B={B} S={S}",
-                         got, want, dname, ("ctx", "alpha"),
-                         {"alpha": alpha_tol(dname, live)})
-        sm.check(bool((got[1][3] == 0).all() and (got[0][3] == 0).all()),
-                 f"fused_additive_attention {dname}: fully masked image "
-                 f"gives alpha = 0 and ctx = 0")
+        mask = mask_for(B, S, live)
+        bytes_ = attn_bytes(B, S, A, H, mask, sz)
+        sets = [attn_inputs(torch, gen, sm.dev, B, S, A, H, mask, dt)
+                for _ in range(n_sets(bytes_))]
+        err = check_fwd(sm, f"fused_additive_attention {dname} B={B} S={S}",
+                        sets[0], dname, live, phases=True)
         record(sm, results, "fused_additive_attention" if dname == "bfloat16" else None,
                f"B={B} S={S} A={A} H={H}", dname,
                attention.fused_additive_attention,
                attention.additive_attention_plain, sets, bytes_,
-               n_live * (3 * A + 2 * H), err)
+               int(mask.sum()) * (3 * A + 2 * H), err)
+        # ragged shapes: odd and single live counts at scattered slots, a
+        # fully masked image, an image alone, the video width
+        for B_, S_, live_, masked in RAGGED_FWD:
+            mask = scattered_mask(torch, gen, sm.dev, B_, S_, live_, masked)
+            check_fwd(sm, f"fused_additive_attention {dname} B={B_} S={S_} "
+                          f"live={live_} masked={list(masked)}",
+                      attn_inputs(torch, gen, sm.dev, B_, S_, A, H, mask, dt),
+                      dname, live_, phases=S_ == 1280)
 
         # row 7: beam decoder core, B = 64, K = 5; S = 128 and 1280
         for S, live, key in ((128, LIVE_REGIONS, "fused_beam_decoder_core"),
@@ -515,20 +583,45 @@ def perturb_typical(want):
     return torch.where(w.abs() <= typical(want), w * 1.05, w)
 
 
+def seeded_randn(torch, gen, dev, dt):
+    """randn(*shape, scale=1.0, dtype=dt): seeded normal values on the
+    card, cast to `dtype`."""
+    def randn(*shape, scale=1.0, dtype=dt):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                ).to(dtype).contiguous()
+    return randn
+
+
+def lstm_inputs(torch, gen, dev, R, H, dt):
+    """Seeded random (gates [R, 4H], c [R, H]) of the LSTM gates forward."""
+    randn = seeded_randn(torch, gen, dev, dt)
+    return randn(R, 4 * H, scale=2.0), randn(R, H)
+
+
+def attn_inputs(torch, gen, dev, B, S, A, H, mask, dt):
+    """Seeded random (keys, q, w, v, mask) of the attention forward at the
+    model's scales (v after a relu, as the region encoder leaves it)."""
+    randn = seeded_randn(torch, gen, dev, dt)
+    return (randn(B, S, A), randn(B, A, scale=0.5),
+            randn(A, scale=A ** -0.5), torch.relu(randn(B, S, H)), mask)
+
+
+def attn_bytes(B, S, A, H, mask, sz) -> int:
+    """Bytes the attention forward must move: the live key and value rows,
+    q, w and the mask read once; ctx and alpha written."""
+    return ((int(mask.sum()) * (A + H) + B * A + A + B * H) * sz
+            + 2 * B * S * 4)
+
+
 def bwd_inputs(torch, gen, dev, B, S, A, H, mask, dt):
     """Seeded random residuals and incoming gradients of the attention
     backward, alpha from the forward's plain version."""
     from cvc_tpu_torch.ops.kernels import attention
 
-    def randn(*shape, scale=1.0, dtype=dt):
-        return (torch.randn(shape, generator=gen, device=dev) * scale
-                ).to(dtype).contiguous()
-    keys = randn(B, S, A)
-    q = randn(B, A, scale=0.5)
-    w = randn(A, scale=A ** -0.5)
-    v = torch.relu(randn(B, S, H))
-    alpha = attention.additive_attention_plain(keys, q, w, v, mask)[1]
-    return (keys, q, w, v, mask, alpha, randn(B, H),
+    randn = seeded_randn(torch, gen, dev, dt)
+    fwd = attn_inputs(torch, gen, dev, B, S, A, H, mask, dt)
+    alpha = attention.additive_attention_plain(*fwd)[1]
+    return (*fwd, alpha, randn(B, H),
             randn(B, S, scale=0.1, dtype=torch.float32))
 
 
@@ -634,18 +727,15 @@ def train_kernel_phase(sm: Smoke, results: dict) -> None:
             if B == TRAIN_BATCH:
                 # row 3, the forward, at the train step's shape
                 fsets = [a[:5] for a in sets]
-                got = attention.fused_additive_attention(*fsets[0])
-                want = attention.additive_attention_plain(*fsets[0])
-                err = sm.compare(f"fused_additive_attention {dname} B={B} "
-                                 f"S={S}", got, want, dname,
-                                 ("ctx", "alpha"),
-                                 {"alpha": alpha_tol(dname, live)})
+                err = check_fwd(sm, f"fused_additive_attention {dname} "
+                                    f"B={B} S={S}", fsets[0], dname, live,
+                                phases=True)
                 record(sm, results, None, f"B={B} S={S} A={A} H={H} "
                        f"(train step)", dname,
                        attention.fused_additive_attention,
                        attention.additive_attention_plain, fsets,
-                       (n_live * (A + H) + B * A + A + B * H) * sz
-                       + 2 * B * S * 4, n_live * (3 * A + 2 * H), err)
+                       attn_bytes(B, S, A, H, mask, sz),
+                       n_live * (3 * A + 2 * H), err)
         # ragged shapes: odd and single live counts at scattered slots, a
         # fully masked image, an image alone, the video width
         for B, S_, live_, masked in RAGGED_BWD:
@@ -806,6 +896,20 @@ def reject_phase(sm: Smoke) -> None:
         "fused_additive_attention misaligned keys": lambda: (
             attention.fused_additive_attention(
                 off(B, S, A), z(B, A), z(A), z(B, S, H), m)),
+        # each block of the cluster takes H / 2 in 16-byte vectors: H a
+        # multiple of 32 bytes (36 floats is 9 vectors), and at most 1024
+        # vectors (4096 floats), one a thread
+        "fused_additive_attention H=36": lambda: (
+            attention.fused_additive_attention(
+                z(B, S, A), z(B, A), z(A), z(B, S, 36), m)),
+        "fused_additive_attention H=4104": lambda: (
+            attention.fused_additive_attention(
+                z(B, S, A), z(B, A), z(A), z(B, S, 4104), m)),
+        "fused_additive_attention stamps of another shape": lambda: (
+            attention.fused_additive_attention(
+                z(B, S, A), z(B, A), z(A), z(B, S, H), m,
+                stamps=torch.zeros((B, STAMP_SLOTS), dtype=torch.int64,
+                                   device=sm.dev))),
         "fused_beam_decoder_core A=24": lambda: core(a=24),
         "fused_beam_decoder_core misaligned keys": lambda: core(
             keys=off(B, S, A)),

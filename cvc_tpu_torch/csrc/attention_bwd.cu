@@ -107,36 +107,6 @@ __host__ __device__ inline BwdPlan bwd_plan(int S, int A, int H, int threads) {
   return p;
 }
 
-// bf16x2 add, subtract and multiply with an explicit round-to-nearest:
-// each rounds the exact result once, and the explicit rounding keeps the
-// compiler from fusing a multiply and an add into one fma (which would
-// skip the rounding of the product that rnd<T> does).
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<const uint32_t*>(&x);
-}
-
-__device__ __forceinline__ __nv_bfloat162 from_bits(uint32_t x) {
-  return *reinterpret_cast<const __nv_bfloat162*>(&x);
-}
-
-__device__ __forceinline__ __nv_bfloat162 add_rn(__nv_bfloat162 a, __nv_bfloat162 b) {
-  uint32_t d;
-  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(bits(a)), "r"(bits(b)));
-  return from_bits(d);
-}
-
-__device__ __forceinline__ __nv_bfloat162 sub_rn(__nv_bfloat162 a, __nv_bfloat162 b) {
-  uint32_t d;
-  asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(bits(a)), "r"(bits(b)));
-  return from_bits(d);
-}
-
-__device__ __forceinline__ __nv_bfloat162 mul_rn(__nv_bfloat162 a, __nv_bfloat162 b) {
-  uint32_t d;
-  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(bits(a)), "r"(bits(b)));
-  return from_bits(d);
-}
-
 // live[0..counts[0]) = slots with mask > 0, dead[0..counts[1]) the others,
 // each in increasing order. Warp 0 compacts 32 slots a ballot.
 __device__ void list_slots(const float* mask, int S, int* live, int* dead, int* counts) {

@@ -1,15 +1,16 @@
 // Block-level pieces of masked additive attention, shared by the attention
-// kernel (attention.cu) and the beam decoder core (decoder_step.cu).
+// kernels (attention.cu, attention_bwd.cu) and the beam decoder core
+// (decoder_step.cu).
 //
-// One thread block owns one image b and K query rows (K = 1 for the plain
-// attention, the K beams for the decoder core). The block first lists the
-// image's live region slots (mask > 0) in shared memory, then streams each
-// live row keys[b, s, :] and v[b, s, :] from device memory once and uses it
-// for all K queries. Padding slots are never read: their weight is exactly 0.
-// Only scores [K, S] and a few [K, A] and [K, H] vectors live in shared
-// memory, so S is bounded by shared memory at ~4 (K + 2) S bytes, not by
-// [S, A] tiles.
+// A pair of thread blocks owns one image b and K query rows (K = 1 for the
+// plain attention, the K beams for the decoder core). Each block first
+// lists the image's live region slots (mask > 0) in shared memory; the live
+// rows keys[b, s, :] and v[b, s, :] then come from device memory once, into
+// shared memory (row_ring.cuh), and serve all K queries. Padding slots are
+// never read: their weight is exactly 0.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -17,16 +18,6 @@ namespace cvc {
 
 constexpr int kAttnThreads = 512;      // threads per attention block
 constexpr float kMaskedScore = -1e30f;
-
-// The hardware tanh (tanh.approx.f32, relative error below 2^-10.9). The
-// bf16 scores round its result to bf16 (steps of 2^-8), so it moves a
-// rounded e by at most one step and only near a rounding boundary; the
-// float32 scores use the accurate tanhf.
-__device__ __forceinline__ float tanh_approx(float x) {
-  float y;
-  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // live[0..*n_live) = the slots s with mask[s] > 0, in increasing order.
 // Warp 0 compacts 32 slots per ballot.
@@ -44,215 +35,144 @@ __device__ inline void list_live_slots(const float* mask, int S, int* live, int*
   if (lane == 0) *n_live = base;
 }
 
-// float32: scores[k * S + s] = sum_a tanh(keys[s, a] + q[k * A + a]) * w[a]
-// for each live slot s (the Pallas kernels' rounding points are no-ops in
-// float32). One warp per live row, 16-byte loads; q, w and scores are in
-// shared memory.
-__device__ inline void attention_scores_f32(const float* __restrict__ keys, const int* live,
-                                            int n_live, const float* q, const float* w,
-                                            float* scores, int K, int S, int A) {
-  constexpr int VEC = kVec<float>;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int i = warp; i < n_live; i += nwarps) {
-    const int s = live[i];
-    float acc[kMaxBeams];
-#pragma unroll
-    for (int k = 0; k < kMaxBeams; ++k) acc[k] = 0.f;
-    const float* row = keys + static_cast<long long>(s) * A;
-    for (int a0 = lane * VEC; a0 < A; a0 += 32 * VEC) {
-      alignas(16) float kv[VEC];
-      load_vec<float>(kv, row + a0);
-#pragma unroll
-      for (int v = 0; v < VEC; ++v) {
-        const float wv = w[a0 + v];
-#pragma unroll
-        for (int k = 0; k < kMaxBeams; ++k)
-          if (k < K) acc[k] = fmaf(tanhf(kv[v] + q[k * A + a0 + v]), wv, acc[k]);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kMaxBeams; ++k) {
-      if (k < K) {
-        const float t = warp_sum(acc[k]);
-        if (lane == 0) scores[k * S + s] = t;
-      }
-    }
-  }
-}
-
-// tanh of two bf16 values: the float32 hardware tanh of each, rounded to
-// bf16 by one paired conversion. (tanh.approx.bf16x2 is cheaper, but its
+// tanh of two bf16 values: the float32 hardware tanh of each (tanh_approx:
+// it moves a rounded e by at most one bf16 step, and only near a rounding
+// boundary; the float32 scores use the accurate tanhf), rounded to bf16 by
+// one paired conversion. (tanh.approx.bf16x2 is cheaper, but its
 // error moved alpha ~50x further from the plain version on the card.)
 __device__ __forceinline__ __nv_bfloat162 tanh_bf16x2(__nv_bfloat162 x) {
   return __floats2bfloat162_rn(tanh_approx(__low2float(x)), tanh_approx(__high2float(x)));
 }
 
-// bf16 scores, on pairs: keys + q
-// is one bf16x2 add (it rounds once, as rnd(float sum) does: the float
-// sum of two bf16 values is exact at these magnitudes) and the two tanh
-// results are rounded by one paired conversion, so a pair needs one
-// float-to-bf16 conversion instead of four. q2 [K, A/2] and w2 [A/2] are q and w as
-// bf16 pairs; w is float. ROUND_PROD multiplies e * w as bf16x2 (the
-// product of two bf16 is exact in float, so this is rnd(e * w)), as
-// cvc_tpu/ops/pallas/attention.py sums e * w formed in the working type;
-// decoder_step.py multiplies in float32. Otherwise as attention_scores_f32.
-template <bool ROUND_PROD>
-__device__ void attention_scores_bf16x2(const __nv_bfloat16* __restrict__ keys, const int* live,
-                                        int n_live, const __nv_bfloat162* q2, const float* w,
-                                        const __nv_bfloat162* w2, float* scores, int K, int S,
-                                        int A) {
+// bf16x2 add, subtract and multiply with an explicit round-to-nearest:
+// each rounds the exact result once, as rnd<T> of the float result does,
+// and the explicit rounding keeps the compiler from fusing a multiply and
+// an add into one fma (which would skip the rounding of the product).
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+__device__ __forceinline__ __nv_bfloat162 from_bits(uint32_t x) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&x);
+}
+
+__device__ __forceinline__ __nv_bfloat162 add_rn(__nv_bfloat162 a, __nv_bfloat162 b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(bits(a)), "r"(bits(b)));
+  return from_bits(d);
+}
+
+__device__ __forceinline__ __nv_bfloat162 sub_rn(__nv_bfloat162 a, __nv_bfloat162 b) {
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(bits(a)), "r"(bits(b)));
+  return from_bits(d);
+}
+
+__device__ __forceinline__ __nv_bfloat162 mul_rn(__nv_bfloat162 a, __nv_bfloat162 b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(bits(a)), "r"(bits(b)));
+  return from_bits(d);
+}
+
+// Scores of `nr` key rows held in shared memory (row i at rows + i * A, slot
+// slots[i]) for KB query rows q [KB, A] (working type, shared memory):
+// sc[k * S + s] = sum_a tanh(keys + q) * w in float32, one warp a row
+// (warps 0 .. nwarps - 1 of the block; the others return at once), written
+// into sc_own and sc_peer (the partner block's copy). bf16: keys + q is one
+// bf16x2 add (it rounds once, as rnd(float sum) does: the float sum of two
+// bf16 values is exact at these magnitudes) and the two hardware tanh
+// results are rounded by one paired conversion. w's type sets where the
+// product rounds: w [A] in the working type rounds each e * w to it before
+// the float32 sum (one mul.rn.bf16x2 a pair), as
+// cvc_tpu/ops/pallas/attention.py forms e * w in the working type; w in
+// float32 multiplies in float32, as decoder_step.py does. In float32 the
+// two are the same.
+template <typename T, int KB, typename W>
+__device__ void scores_smem(const T* rows, const int* slots, int nr, const T* q, const W* w,
+                            float* sc_own, float* sc_peer, int S, int A, int nwarps) {
+  constexpr int V = kVec<T>;
+  constexpr bool kBF16 = std::is_same<T, __nv_bfloat16>::value;
+  constexpr bool kRoundProduct = kBF16 && std::is_same<W, T>::value;
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int A2 = A / 2;
-  for (int i = warp; i < n_live; i += nwarps) {
-    const int s = live[i];
-    float acc[kMaxBeams];
+  for (int i = threadIdx.x >> 5; i < nr && (threadIdx.x >> 5) < nwarps; i += nwarps) {
+    const T* row = rows + static_cast<long long>(i) * A;
+    float acc[KB];
 #pragma unroll
-    for (int k = 0; k < kMaxBeams; ++k) acc[k] = 0.f;
-    const __nv_bfloat16* row = keys + static_cast<long long>(s) * A;
-    for (int a0 = lane * 8; a0 < A; a0 += 32 * 8) {
-      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(row + a0));
-      const __nv_bfloat162* kv = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    for (int k = 0; k < KB; ++k) acc[k] = 0.f;
+    for (int a0 = lane * V; a0 < A; a0 += 32 * V) {
+      // 16 bytes of the key row, of each query row and the matching w
+      const uint4 raw = *reinterpret_cast<const uint4*>(row + a0);
+      alignas(16) W wv[V];
 #pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        const int ap = a0 / 2 + p;
-        const float w0 = w[2 * ap];
-        const float w1 = w[2 * ap + 1];
+      for (int v = 0; v < V; v += 16 / static_cast<int>(sizeof(W)))
+        *reinterpret_cast<uint4*>(wv + v) = *reinterpret_cast<const uint4*>(w + a0 + v);
 #pragma unroll
-        for (int k = 0; k < kMaxBeams; ++k) {
-          if (k < K) {
-            __nv_bfloat162 e = tanh_bf16x2(__hadd2(kv[p], q2[k * A2 + ap]));
-            if (ROUND_PROD) {
-              e = __hmul2(e, w2[ap]);
-              acc[k] += __low2float(e);
-              acc[k] += __high2float(e);
+      for (int k = 0; k < KB; ++k) {
+        const uint4 qr = *reinterpret_cast<const uint4*>(q + k * A + a0);
+        if constexpr (kBF16) {
+          const __nv_bfloat162* kv = reinterpret_cast<const __nv_bfloat162*>(&raw);
+          const __nv_bfloat162* q2 = reinterpret_cast<const __nv_bfloat162*>(&qr);
+#pragma unroll
+          for (int p = 0; p < 4; ++p) {
+            const __nv_bfloat162 e = tanh_bf16x2(__hadd2(kv[p], q2[p]));
+            if constexpr (kRoundProduct) {
+              const float2 ew = __bfloat1622float2(
+                  mul_rn(e, reinterpret_cast<const __nv_bfloat162*>(wv)[p]));
+              acc[k] += ew.x;
+              acc[k] += ew.y;
             } else {
-              acc[k] = fmaf(__low2float(e), w0, acc[k]);
-              acc[k] = fmaf(__high2float(e), w1, acc[k]);
+              acc[k] = fmaf(__low2float(e), wv[2 * p], acc[k]);
+              acc[k] = fmaf(__high2float(e), wv[2 * p + 1], acc[k]);
             }
           }
+        } else {
+          const float* kk = reinterpret_cast<const float*>(&raw);
+          const float* qq = reinterpret_cast<const float*>(&qr);
+#pragma unroll
+          for (int v = 0; v < 4; ++v) acc[k] = fmaf(tanhf(kk[v] + qq[v]), wv[v], acc[k]);
         }
       }
     }
+    const int s = slots[i];
 #pragma unroll
-    for (int k = 0; k < kMaxBeams; ++k) {
-      if (k < K) {
-        const float t = warp_sum(acc[k]);
-        if (lane == 0) scores[k * S + s] = t;
+    for (int k = 0; k < KB; ++k) {
+      const float t = warp_sum(acc[k]);
+      if (lane == 0) {
+        sc_own[k * S + s] = t;
+        sc_peer[k * S + s] = t;
       }
     }
   }
 }
 
-// pairs[i] = (x[2i], x[2i + 1]) as bf16 for i < n / 2 (x holds bf16 values).
-__device__ inline void pack_bf16x2(const float* x, __nv_bfloat162* pairs, int n) {
-  for (int i = threadIdx.x; i < n / 2; i += blockDim.x)
-    pairs[i] = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
-}
-
-// In place over scores [K, S]: masked softmax in float32, as the Pallas
-// kernels do it (max over live slots, exp, sum clamped to 1e-9, divide).
-// Masked slots, and every slot of a row with none live, come out 0.
-// alpha_out gets the same [K, S] values. One warp per query row.
-__device__ inline void masked_softmax_rows(float* scores, const float* mask,
-                                           float* __restrict__ alpha_out, int K, int S) {
+// In place over scores [K, S] (every live slot's score present): the masked
+// softmax in float32, as the Pallas kernels do it (max over live slots,
+// exp, sum clamped to 1e-9, divide); masked slots, and every slot of a row
+// with none live, come out 0. One warp a query row. Both blocks of an
+// image's pair run it on the same values in the same order; block `rank`
+// writes the slots s with s % 2 == rank of alpha_out. scores then hold
+// alpha rounded to T, the weights of the context sum.
+template <typename T>
+__device__ void softmax_rows_half(float* scores, const float* mask, float* __restrict__ alpha_out,
+                                  int K, int S, int rank) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int k = warp; k < K; k += nwarps) {
+  for (int k = threadIdx.x >> 5; k < K; k += blockDim.x >> 5) {
     float* row = scores + k * S;
     float m = kMaskedScore;
     for (int s = lane; s < S; s += 32)
       if (mask[s] > 0.f) m = fmaxf(m, row[s]);
     m = warp_max(m);
     float sum = 0.f;
-    for (int s = lane; s < S; s += 32) sum += mask[s] > 0.f ? expf(row[s] - m) : 0.f;
+    for (int s = lane; s < S; s += 32) {   // a lane reads back only its own slots
+      const float e = mask[s] > 0.f ? expf(row[s] - m) : 0.f;
+      row[s] = e;
+      sum += e;
+    }
     const float denom = fmaxf(warp_sum(sum), 1e-9f);
     for (int s = lane; s < S; s += 32) {
-      const float a = mask[s] > 0.f ? expf(row[s] - m) / denom : 0.f;
-      row[s] = a;
-      alpha_out[k * S + s] = a;
-    }
-  }
-}
-
-// Shared-memory floats attention_context<T> needs for its partial sums.
-template <typename T>
-int context_partial_floats(int K, int H, int threads) {
-  const int cols = H / kVec<T>;
-  const int groups = cols >= threads ? 1 : threads / cols;
-  return (groups - 1) * K * H;
-}
-
-// ctx[k * H + h] = sum over live s of rnd(alpha[k * S + s]) * v[s, h], summed
-// in float32 (ROUND_PROD rounds each product to T first, as the attention
-// kernel's multiply-reduce does). Each thread owns kVec<T> columns; when the
-// columns need fewer threads than the block has, G groups of threads split
-// the live rows and group 0 adds the others' partial sums (kept in `part`)
-// in group order, so the result does not depend on timing.
-template <typename T, bool ROUND_PROD>
-__device__ void attention_context(const T* __restrict__ v, const int* live, int n_live,
-                                  const float* alpha, T* __restrict__ ctx, float* part,
-                                  int K, int S, int H) {
-  constexpr int VEC = kVec<T>;
-  const int cols = H / VEC;
-  const int stride = cols < static_cast<int>(blockDim.x) ? cols : blockDim.x;
-  const int G = blockDim.x / stride;
-  const int g = threadIdx.x / stride;
-  for (int c = threadIdx.x % stride; c < cols; c += stride) {
-    const int h0 = c * VEC;
-    float acc[kMaxBeams][VEC];
-#pragma unroll
-    for (int k = 0; k < kMaxBeams; ++k)
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[k][i] = 0.f;
-    if (g < G) {
-#pragma unroll 4
-      for (int i = g; i < n_live; i += G) {
-        const int s = live[i];
-        alignas(16) T vv[VEC];
-        load_vec<T>(vv, v + static_cast<long long>(s) * H + h0);
-#pragma unroll
-        for (int k = 0; k < kMaxBeams; ++k) {
-          if (k < K) {
-            const float a = rnd<T>(alpha[k * S + s]);
-#pragma unroll
-            for (int j = 0; j < VEC; ++j) {
-              const float p = a * to_f(vv[j]);
-              acc[k][j] += ROUND_PROD ? rnd<T>(p) : p;
-            }
-          }
-        }
-      }
-    }
-    if (G > 1) {  // block-uniform; then every thread has exactly one c
-      if (g > 0 && g < G) {
-#pragma unroll
-        for (int k = 0; k < kMaxBeams; ++k)
-          if (k < K)
-#pragma unroll
-            for (int j = 0; j < VEC; ++j) part[((g - 1) * K + k) * H + h0 + j] = acc[k][j];
-      }
-      __syncthreads();
-      if (g != 0) continue;
-      for (int gg = 1; gg < G; ++gg)
-#pragma unroll
-        for (int k = 0; k < kMaxBeams; ++k)
-          if (k < K)
-#pragma unroll
-            for (int j = 0; j < VEC; ++j) acc[k][j] += part[((gg - 1) * K + k) * H + h0 + j];
-    }
-#pragma unroll
-    for (int k = 0; k < kMaxBeams; ++k) {
-      if (k < K) {
-        alignas(16) T out[VEC];
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) out[j] = from_f<T>(acc[k][j]);
-        store_vec<T>(ctx + static_cast<long long>(k) * H + h0, out);
-      }
+      const float a = row[s] / denom;
+      row[s] = rnd<T>(a);
+      if ((s & 1) == rank) alpha_out[k * S + s] = a;
     }
   }
 }

@@ -46,6 +46,14 @@ template <typename T> __device__ __forceinline__ float rnd(float x) {
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-x)); }
 
+// The hardware tanh (tanh.approx.f32, relative error below 2^-10.9): for
+// results that are rounded to bf16 (steps of 2^-8 relative) right away.
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -67,6 +75,32 @@ __device__ __forceinline__ void load_vec(T (&dst)[kVec<T>], const T* __restrict_
 template <typename T>
 __device__ __forceinline__ void store_vec(T* __restrict__ dst, const T (&src)[kVec<T>]) {
   *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+}
+
+// Programmatic dependent launch. A kernel launched with launch_dependent
+// may be scheduled while the kernel before it on the stream is still
+// running, so that its launch overlaps that kernel's tail; it calls
+// grid_dependency_wait before its first access to device memory, which
+// holds it until that kernel's grid has completed and its writes are
+// visible.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem,
+                             cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }

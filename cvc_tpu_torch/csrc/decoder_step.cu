@@ -232,88 +232,6 @@ __device__ void query_partial_f32(const float* __restrict__ att_wh, const float*
   }
 }
 
-// Scores of `nr` key rows held in shared memory (row i at rows + i * A, slot
-// slots[i]): sc[k * S + s] = sum_a tanh(keys + q) * w, one warp a row, into
-// sc_own and sc_peer. bf16: keys + q as bf16 pairs, the hardware tanh
-// rounded by one paired conversion, float32 products with w (as the
-// attention_scores_bf16x2<false> of attention_common.cuh, on shared rows).
-template <typename T, int KB>
-__device__ void scores_smem(const T* rows, const int* slots, int nr, const T* q, const float* w,
-                            float* sc_own, float* sc_peer, int S, int A) {
-  constexpr int V = kVec<T>;
-  const int lane = threadIdx.x & 31;
-  for (int i = threadIdx.x >> 5; i < nr; i += blockDim.x >> 5) {
-    const T* row = rows + static_cast<long long>(i) * A;
-    float acc[KB];
-#pragma unroll
-    for (int k = 0; k < KB; ++k) acc[k] = 0.f;
-    for (int a0 = lane * V; a0 < A; a0 += 32 * V) {
-      // 16 bytes of the key row, of each beam's q and the matching w
-      const uint4 raw = *reinterpret_cast<const uint4*>(row + a0);
-      float wv[V];
-#pragma unroll
-      for (int v = 0; v < V; v += 4) {
-        const float4 t = *reinterpret_cast<const float4*>(w + a0 + v);
-        wv[v] = t.x, wv[v + 1] = t.y, wv[v + 2] = t.z, wv[v + 3] = t.w;
-      }
-#pragma unroll
-      for (int k = 0; k < KB; ++k) {
-        const uint4 qr = *reinterpret_cast<const uint4*>(q + k * A + a0);
-        if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-          const __nv_bfloat162* kv = reinterpret_cast<const __nv_bfloat162*>(&raw);
-          const __nv_bfloat162* q2 = reinterpret_cast<const __nv_bfloat162*>(&qr);
-#pragma unroll
-          for (int p = 0; p < 4; ++p) {
-            const __nv_bfloat162 e = tanh_bf16x2(__hadd2(kv[p], q2[p]));
-            acc[k] = fmaf(__low2float(e), wv[2 * p], acc[k]);
-            acc[k] = fmaf(__high2float(e), wv[2 * p + 1], acc[k]);
-          }
-        } else {
-          const float* kk = reinterpret_cast<const float*>(&raw);
-          const float* qq = reinterpret_cast<const float*>(&qr);
-#pragma unroll
-          for (int v = 0; v < 4; ++v) acc[k] = fmaf(tanhf(kk[v] + qq[v]), wv[v], acc[k]);
-        }
-      }
-    }
-    const int s = slots[i];
-#pragma unroll
-    for (int k = 0; k < KB; ++k) {
-      const float t = warp_sum(acc[k]);
-      if (lane == 0) {
-        sc_own[k * S + s] = t;
-        sc_peer[k * S + s] = t;
-      }
-    }
-  }
-}
-
-// In place over scores [K, S] (every live slot's score present): the masked
-// softmax of masked_softmax_rows (float32; masked slots and fully masked
-// rows 0), one warp a beam. Both blocks of the pair run it on the same
-// values; block `rank` writes the slots s with s % 2 == rank of alpha_out.
-// scores then hold alpha rounded to T, the weights of the context sum.
-template <typename T>
-__device__ void softmax_rows_half(float* scores, const float* mask, float* __restrict__ alpha_out,
-                                  int K, int S, int rank) {
-  const int lane = threadIdx.x & 31;
-  for (int k = threadIdx.x >> 5; k < K; k += blockDim.x >> 5) {
-    float* row = scores + k * S;
-    float m = kMaskedScore;
-    for (int s = lane; s < S; s += 32)
-      if (mask[s] > 0.f) m = fmaxf(m, row[s]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int s = lane; s < S; s += 32) sum += mask[s] > 0.f ? expf(row[s] - m) : 0.f;
-    const float denom = fmaxf(warp_sum(sum), 1e-9f);
-    for (int s = lane; s < S; s += 32) {
-      const float a = mask[s] > 0.f ? expf(row[s] - m) / denom : 0.f;
-      row[s] = rnd<T>(a);
-      if ((s & 1) == rank) alpha_out[k * S + s] = a;
-    }
-  }
-}
-
 // Shared-memory plan of one block, in bytes; every region 16-byte aligned.
 struct CorePlan {
   int hs, key_rows, val_rows;
@@ -452,7 +370,7 @@ beam_decoder_core_kernel(const T* __restrict__ gates1, const T* __restrict__ c_a
   for (int c = 0; c < kr.chunks(); ++c) {
     const T* rows = reinterpret_cast<const T*>(kr.wait(c));
     scores_smem<T, KB>(rows, live + own_lo + c * kr.rows, kr.chunk_rows(c), q, w_s, sc, sc_peer,
-                       S, A);
+                       S, A, nwarps);
     __syncthreads();
     kr.refill(c, 0);
   }

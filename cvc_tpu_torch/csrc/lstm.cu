@@ -8,62 +8,111 @@
 //     recomputes i, f, g, o and tanh(c') instead of loading saved ones
 // computed in float32, stored in c's type.
 //
-// Bound: bytes. Each element is read once and written once with a few tens
-// of operations between, far below the card's ~295 operations per byte, so
-// the kernels' only job is to stream: each thread owns kVec consecutive
-// units of one row and moves them with one 16-byte access per gate block,
-// the block stride loop keeps every SM busy, and nothing is staged in
-// shared memory.
+// Bound: bytes on paper (each element is read once and written once with a
+// few tens of operations between), but at the model's shapes (R 64 or 128,
+// H 1024: under 2 MB) the bytes take well under a microsecond and a call
+// costs what a launch costs plus one round trip to memory plus the serial
+// math of one thread (four units of expf, division and tanhf in a row cost
+// a thread ~0.8 us on an H100). So the forward is laid out for latency: a
+// thread owns 4 bytes of consecutive units of a row (one float32 unit, two
+// bf16 units) as long as the card holds all the threads at once, asks for
+// its four gate pieces and its cell piece before any math, and nothing is
+// staged in shared memory. In bf16, where h' and c' are rounded to steps of
+// 2^-8 anyway, the sigmoids and tanhs run on the hardware tanh (sigmoid(x) =
+// 0.5 tanh(0.5 x) + 0.5: one instruction for an expf and a division);
+// float32 keeps expf and tanhf. The forward is a programmatic dependent
+// launch: its blocks may be scheduled during the tail of the kernel before
+// it on the stream, and wait for that kernel's completion before they touch
+// device memory. The backward streams 16-byte vectors with a block stride
+// loop.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
 using namespace cvc;
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kLstmThreads = 128;   // threads per block of the forward
+constexpr long long kLstmResident = 132LL * 2048;   // threads the card holds at once
+
+// The unsigned type of `BYTES` bytes that one load or store moves.
+template <int BYTES> struct Piece;
+template <> struct Piece<16> { using type = uint4; };
+template <> struct Piece<8> { using type = uint2; };
+template <> struct Piece<4> { using type = uint32_t; };
+
+template <bool FAST> __device__ __forceinline__ float gate_sigmoid(float x) {
+  if constexpr (FAST) return fmaf(0.5f, tanh_approx(0.5f * x), 0.5f);
+  return sigmoid_f(x);
+}
+
+template <bool FAST> __device__ __forceinline__ float gate_tanh(float x) {
+  if constexpr (FAST) return tanh_approx(x);
+  return tanhf(x);
+}
+
+// A thread owns U consecutive units of one row.
+template <typename T, int U>
+__global__ void __launch_bounds__(kLstmThreads)
 lstm_gates_fwd_kernel(const T* __restrict__ gates, const T* __restrict__ c,
                       T* __restrict__ h_out, T* __restrict__ c_out, int R, int H) {
-  constexpr int VEC = kVec<T>;
-  const int groups = H / VEC;
+  using P = typename Piece<U * sizeof(T)>::type;
+  constexpr bool FAST = std::is_same<T, __nv_bfloat16>::value;
+  const int groups = H / U;
   const long long n = static_cast<long long>(R) * groups;
+  grid_dependency_wait();   // ahead of every access to device memory
   for (long long t = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; t < n;
        t += static_cast<long long>(gridDim.x) * blockDim.x) {
     const int r = static_cast<int>(t / groups);
-    const int j = static_cast<int>(t - static_cast<long long>(r) * groups) * VEC;
+    const int j = static_cast<int>(t - static_cast<long long>(r) * groups) * U;
     const T* g = gates + static_cast<long long>(r) * 4 * H + j;
     const long long o = static_cast<long long>(r) * H + j;
-    alignas(16) T gi[VEC], gf[VEC], gg[VEC], go[VEC], cc[VEC], ho[VEC], co[VEC];
-    load_vec<T>(gi, g);
-    load_vec<T>(gf, g + H);
-    load_vec<T>(gg, g + 2 * H);
-    load_vec<T>(go, g + 3 * H);
-    load_vec<T>(cc, c + o);
+    alignas(16) T gi[U], gf[U], gg[U], go[U], cc[U], ho[U], co[U];
+    *reinterpret_cast<P*>(gi) = __ldg(reinterpret_cast<const P*>(g));
+    *reinterpret_cast<P*>(gf) = __ldg(reinterpret_cast<const P*>(g + H));
+    *reinterpret_cast<P*>(gg) = __ldg(reinterpret_cast<const P*>(g + 2 * H));
+    *reinterpret_cast<P*>(go) = __ldg(reinterpret_cast<const P*>(g + 3 * H));
+    *reinterpret_cast<P*>(cc) = __ldg(reinterpret_cast<const P*>(c + o));
 #pragma unroll
-    for (int v = 0; v < VEC; ++v) {
-      const float i_ = sigmoid_f(to_f(gi[v]));
-      const float f_ = sigmoid_f(to_f(gf[v]));
-      const float g_ = tanhf(to_f(gg[v]));
-      const float o_ = sigmoid_f(to_f(go[v]));
+    for (int v = 0; v < U; ++v) {
+      const float i_ = gate_sigmoid<FAST>(to_f(gi[v]));
+      const float f_ = gate_sigmoid<FAST>(to_f(gf[v]));
+      const float g_ = gate_tanh<FAST>(to_f(gg[v]));
+      const float o_ = gate_sigmoid<FAST>(to_f(go[v]));
       const float c_new = f_ * to_f(cc[v]) + i_ * g_;
-      ho[v] = from_f<T>(o_ * tanhf(c_new));
+      ho[v] = from_f<T>(o_ * gate_tanh<FAST>(c_new));
       co[v] = from_f<T>(c_new);
     }
-    store_vec<T>(h_out + o, ho);
-    store_vec<T>(c_out + o, co);
+    *reinterpret_cast<P*>(h_out + o) = *reinterpret_cast<const P*>(ho);
+    *reinterpret_cast<P*>(c_out + o) = *reinterpret_cast<const P*>(co);
   }
 }
 
+template <typename T, int U>
+void launch_units(const void* gates, const void* c, void* h, void* c_new, int R, int H,
+                  long long blocks, cudaStream_t stream) {
+  launch_dependent(lstm_gates_fwd_kernel<T, U>, dim3(static_cast<unsigned>(blocks)),
+                   dim3(kLstmThreads), 0, stream, static_cast<const T*>(gates),
+                   static_cast<const T*>(c), static_cast<T*>(h), static_cast<T*>(c_new), R, H);
+}
+
+// The fewest units a thread (4, 8 or 16 bytes of them) whose threads the
+// card still holds all at once; beyond that, 16 bytes and a stride loop.
 template <typename T>
 void launch(const void* gates, const void* c, void* h, void* c_new, int R, int H,
             cudaStream_t stream) {
-  const long long n = static_cast<long long>(R) * (H / kVec<T>);
-  const long long want = (n + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
-  if (blocks == 0) return;
-  lstm_gates_fwd_kernel<T><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(gates), static_cast<const T*>(c), static_cast<T*>(h),
-      static_cast<T*>(c_new), R, H);
+  constexpr int V = kVec<T>;
+  const long long units = static_cast<long long>(R) * H;
+  if (units == 0) return;
+  auto blocks = [&](int u) { return (units / u + kLstmThreads - 1) / kLstmThreads; };
+  constexpr long long kHeld = kLstmResident / kLstmThreads;
+  if (blocks(V / 4) <= kHeld)
+    launch_units<T, V / 4>(gates, c, h, c_new, R, H, blocks(V / 4), stream);
+  else if (blocks(V / 2) <= kHeld)
+    launch_units<T, V / 2>(gates, c, h, c_new, R, H, blocks(V / 2), stream);
+  else
+    launch_units<T, V>(gates, c, h, c_new, R, H, blocks(V) < kHeld ? blocks(V) : kHeld, stream);
 }
 
 template <typename T>

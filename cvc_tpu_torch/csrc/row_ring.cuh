@@ -133,6 +133,13 @@ __device__ __forceinline__ void cluster_arrive_relaxed() {
   asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
 }
 
+// The arrival of a later phase of the cluster barrier: it orders this
+// thread's earlier writes (those into a partner's shared memory too) before
+// what the cluster's threads do after their cluster_wait.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
 }

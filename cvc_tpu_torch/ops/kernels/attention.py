@@ -14,9 +14,10 @@ its VJP:
 The backward takes the residuals (keys, q, w, v, mask, alpha), recomputes
 tanh(keys + q) and rounds where the Pallas `_bwd_kernel` rounds. On the
 card both directions are bound by bytes and read each live key row and
-value row once: the forward with one thread block per image, the backward
-with a cluster of two blocks per image whose key rows the Tensor Memory
-Accelerator prefetches; see the sources for the design.
+value row once, each with a cluster of two thread blocks per image whose
+rows the Tensor Memory Accelerator prefetches into shared memory (the
+forward asks for its key rows and value rows at once, so the value rows
+stream in while the scores are computed); see the sources for the design.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from cvc_tpu_torch.ops.kernels import build
 from cvc_tpu_torch.ops.primitives import masked_softmax, upcast
 
 MAX_BWD_A_VECTORS = 512   # the backward's threads a block: a column group each
+MAX_FWD_H_VECTORS = 1024  # the forward's threads of an image's two blocks
 
 
 def additive_attention_plain(keys, q, w, v, mask):
@@ -78,17 +80,26 @@ def _check(name, keys, q, w, v, mask, extra_f32=None, extra_t=None):
     return dev
 
 
-def _attention_fwd(keys, q, w, v, mask):
+def _attention_fwd(keys, q, w, v, mask, stamps=None):
     if build.on_cpu(keys, q, w, v, mask):
         return additive_attention_plain(keys, q, w, v, mask)
     name = "fused_additive_attention"
     dev = _check(name, keys, q, w, v, mask)
     B, S, A = keys.shape
     H = v.shape[-1]
+    vec = build.vector_elems(keys)
+    # each block of an image's pair takes H / 2 in 16-byte vectors, one a
+    # thread
+    build.check_vectors(name, {}, {"H": (H, 2 * vec)})
+    if H > MAX_FWD_H_VECTORS * vec:
+        raise ValueError(f"{name}: H={H} is above {MAX_FWD_H_VECTORS * vec}, "
+                         f"{MAX_FWD_H_VECTORS} 16-byte vectors")
+    build.check_stamps(name, stamps, B, dev)
     ctx = torch.empty((B, H), dtype=v.dtype, device=dev)
     alpha = torch.empty((B, S), dtype=torch.float32, device=dev)
     build.launch("cvc_additive_attention_fwd", keys, q, w, v, mask, ctx,
-                 alpha, B, S, A, H, build.dtype_code(name, keys.dtype))
+                 alpha, stamps, B, S, A, H,
+                 build.dtype_code(name, keys.dtype))
     fused_additive_attention.launches += 1
     return ctx, alpha
 
@@ -163,19 +174,28 @@ class _AdditiveAttention(torch.autograd.Function):
         return dkeys, dq, dw, dv, None
 
 
-def fused_additive_attention(keys, q, w, v, mask):
+def fused_additive_attention(keys, q, w, v, mask, stamps=None):
     """keys [B,S,A], q [B,A], w [A], v [B,S,H], mask [B,S] float32 ->
     (ctx [B,H] in v's type, alpha [B,S] float32), differentiable in keys,
-    q, w and v through `fused_additive_attention_bwd`.
+    q, w and v through `fused_additive_attention_bwd`. Equal inputs give
+    bit-equal outputs.
 
     CPU tensors take `additive_attention_plain`; CUDA tensors launch the
-    kernel, which takes A and H multiples of 16 bytes of elements and
-    16-byte aligned keys and v. Without a gradient to record (serving) the
-    forward runs directly, without the autograd Function's host cost."""
+    kernel, which takes A a multiple of 16 bytes of elements, H a multiple
+    of 32 bytes (each block of an image's pair takes half of H) and at
+    most 1024 16-byte vectors, and 16-byte aligned keys and v. Without a
+    gradient to record (serving) the forward runs directly, without the
+    autograd Function's host cost. `stamps`, an int64 CUDA tensor
+    [2B, STAMP_SLOTS] or None, receives each block's clock at the ends of
+    its phases (the breakdown chip_smoke.py prints); it is a timing aid
+    and is not taken while a gradient is recorded."""
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (keys, q, w, v)):
+        if stamps is not None:
+            raise ValueError("fused_additive_attention: stamps are taken "
+                             "only where no gradient is recorded")
         return _AdditiveAttention.apply(keys, q, w, v, mask)
-    return _attention_fwd(keys, q, w, v, mask)
+    return _attention_fwd(keys, q, w, v, mask, stamps)
 
 
 fused_additive_attention.launches = 0

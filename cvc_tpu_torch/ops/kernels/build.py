@@ -39,7 +39,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "cvc_lstm_gates_fwd": [_P, _P, _P, _P, _I, _I, _I, _P],
     "cvc_lstm_gates_bwd": [_P] * 6 + [_I] * 3 + [_P],
-    "cvc_additive_attention_fwd": [_P] * 7 + [_I] * 5 + [_P],
+    "cvc_additive_attention_fwd": [_P] * 8 + [_I] * 5 + [_P],
     "cvc_additive_attention_bwd": [_P] * 14 + [_I] * 5 + [_P],
     "cvc_masked_xent_fwd": [_P] * 4 + [_I] * 3 + [_P],
     "cvc_masked_xent_bwd": [_P] * 5 + [_I] * 3 + [_P],

@@ -8,9 +8,15 @@ computed in float32 and stored in c's type. The backward recomputes the
 activations from the residuals (gates, c), as the Pallas backward does,
 instead of saving them. The passes are elementwise with no data reuse, so
 Triton would serve as well as CUDA here; they are written in CUDA C++ so
-that all the port's kernels share one build. On the card the work is bound
-by bytes: each thread moves 16-byte vectors of the four gate blocks and the
-cell.
+that all the port's kernels share one build. At the model's shapes (R 64
+or 128, H 1024) a call moves under 2 MB, so its time is a launch, one round
+trip to memory and one thread's math: the forward gives a thread 4 bytes
+of units (one in float32, two in bf16), issues a thread's five loads
+before any math, in bf16 computes the sigmoids and tanhs on the hardware
+tanh (the results are rounded to bf16 anyway), and is launched so that
+its scheduling may overlap the tail of the kernel before it on the stream
+(it waits for that kernel's completion before it touches device memory);
+the backward moves 16-byte vectors of the four gate blocks and the cell.
 """
 
 from __future__ import annotations

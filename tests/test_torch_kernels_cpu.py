@@ -66,9 +66,13 @@ def _mask_live(rng, B, S, live, empty=()):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_lstm_gates_plain_matches_pallas(dtype):
-    rng = np.random.default_rng(1)
-    R, H = 10, 16
+@pytest.mark.parametrize("R", [10, 1, 13])
+def test_lstm_gates_plain_matches_pallas(R, dtype):
+    """R 10 as the JAX tests run it, and the CUDA kernel's ragged rows: one
+    row, and 13, no multiple of the Pallas row block (4). float32 at rtol
+    1e-5 / atol 1e-6, bf16 at 2e-2 (see the module docstring)."""
+    rng = np.random.default_rng(R)
+    H = 16
     jg, tg = _pair(rng.normal(size=(R, 4 * H)).astype(np.float32), dtype)
     jc, tc = _pair(rng.normal(size=(R, H)).astype(np.float32), dtype)
     jh, jc2 = j_lstm(jg, jc, 4, True)
@@ -79,22 +83,36 @@ def test_lstm_gates_plain_matches_pallas(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_additive_attention_plain_matches_pallas(dtype):
-    rng = np.random.default_rng(0)
-    B, S, A, H = 6, 16, 32, 24
+@pytest.mark.parametrize("B,S,empty,live", [
+    pytest.param(6, 16, (2,), None, id="6-prefix-empty2"),
+    # the CUDA kernel's ragged cases, at A 32, H 24: scattered live slots
+    # with a fully masked image, a single live slot, an image alone; B 13
+    # and 5 are no multiples of the Pallas batch block (4)
+    pytest.param(13, 128, (4,), 37, id="B13-live37-empty4"),
+    pytest.param(5, 128, (), 1, id="B5-live1"),
+    pytest.param(1, 104, (), 37, id="B1-live37"),
+])
+def test_additive_attention_plain_matches_pallas(B, S, empty, live, dtype):
+    """float32 at rtol 1e-5 / atol 1e-5, bf16 at 2e-2 (see the module
+    docstring); fully masked images give exact zeros."""
+    rng = np.random.default_rng(B)
+    A, H = 32, 24
     f = lambda *s: rng.normal(size=s).astype(np.float32)
     jk, tk = _pair(f(B, S, A), dtype)
     jq, tq = _pair(f(B, A), dtype)
     jw, tw = _pair(f(A), dtype)
     jv, tv = _pair(f(B, S, H), dtype)
-    mask = _mask(rng, B, S, empty=(2,))
+    mask = (_mask(rng, B, S, empty=empty) if live is None
+            else _mask_live(rng, B, S, live, empty))
     jctx, jalpha = j_attn(jk, jq, jw, jv, jnp.asarray(mask), 4, True)
     tctx, talpha = attention.additive_attention_plain(
         tk, tq, tw, tv, torch.from_numpy(mask))
     assert tctx.dtype == DTYPES[dtype][1] and talpha.dtype == torch.float32
     _close(tctx, jctx, dict(rtol=1e-5, atol=1e-5), dtype, "ctx")
     _close(talpha, jalpha, dict(rtol=1e-5, atol=1e-5), dtype, "alpha")
-    assert (talpha[2] == 0).all() and (tctx[2] == 0).all()
+    assert (talpha[mask == 0] == 0).all()
+    for b in empty:
+        assert (talpha[b] == 0).all() and (tctx[b] == 0).all()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
