@@ -262,7 +262,7 @@ CORE_PHASES = ("live list + gating", "q product", "q combine (cluster "
 BWD_PHASES = ("live list + prefetch issue", "value pass + padding rows",
               "softmax bwd (cluster barrier)", "key pass",
               "dq, dw combine (cluster barrier)")
-FWD_PHASES = ("live list + partner started", "scores", "cluster barrier",
+FWD_PHASES = ("live list + partner started", "scores", "the pair's scores in",
               "softmax", "context rows", "context combine + store")
 # (B, K, S, live slots an image, fully masked images) of the beam core's
 # ragged cases, and (B, S, live, masked) of the attention backward's and

@@ -26,19 +26,23 @@
 //      every live value row, into two rings of two shared-memory buffers,
 //      so the value rows stream in while the scores are computed. The
 //      copies queue at the rate the memory serves them, which holds that
-//      warp for most of the kernel: it computes no score, arrives at the
-//      scores' cluster barrier before it starts, and the other warps meet
-//      it only where a buffer is to be refilled. In bf16 at S 128 the
-//      whole image fits (~150 KB at 100 live slots) and nothing is
-//      refilled; in float32 the key rows fit whole and the value ring loops
-//      over chunks, as both do at the 1280-slot video width;
+//      warp for most of the kernel: it computes no score, and the other
+//      warps meet it only where a buffer is to be refilled. In bf16 at
+//      S 128 the whole image fits (~150 KB at 100 live slots) and nothing
+//      is refilled; in float32 the key rows fit whole and the value ring
+//      loops over chunks, as both do at the 1280-slot video width;
 //   2. scores of its key rows as they land, one warp a row out of shared
-//      memory, written into both blocks' score arrays (distributed shared
-//      memory); this pass is the block's arithmetic (a tanh an element:
+//      memory; this pass is the block's arithmetic (a tanh an element:
 //      ~3 us in bf16 on the hardware tanh, more with float32's tanhf);
-//   3. after a cluster barrier both blocks hold every score and run the
-//      same masked softmax in the same order; each writes the alpha slots
-//      of its parity; no block touches its partner's memory afterwards;
+//   3. each score is stored into both blocks' score arrays (distributed
+//      shared memory) by st.async, which counts its bytes on the receiving
+//      block's mbarrier; a block waits until the bytes of all n scores are
+//      in and runs the masked softmax, the same in both blocks and in the
+//      same order; each writes the alpha slots of its parity. A cluster
+//      barrier here would need a release, which waits for every write the
+//      block has in flight, the streaming value rows among them (3.3 us
+//      on the card); the counted stores need no fence. No block touches
+//      its partner's memory after its wait;
 //   4. context over the prefetched value half-rows: a thread owns 16 bytes
 //      of columns, groups of threads split each chunk's rows and group 0
 //      adds the groups' partial sums in group order (bf16: rnd(alpha) * v of
@@ -64,8 +68,6 @@ namespace {
 
 using namespace cvc;
 namespace cg = cooperative_groups;
-
-constexpr int kIssueWarps = 1;   // the block's last warp issues the copies
 
 // Rows a buffer of the key ring and of the value ring hold, for an image
 // with n live slots, in `bytes` of shared memory (key rows of kb bytes,
@@ -102,7 +104,7 @@ __host__ __device__ inline FwdPlan fwd_plan(int S, int A, int H, int threads) {
   const size_t sz = sizeof(T);
   const int HH = H / 2;
   size_t o = 0;
-  p.bars = o;   o += 32;                        // four mbarriers
+  p.bars = o;   o += 48;                        // five mbarriers
   p.n_live = o; o += 16;
   p.m_s = o;    o += up16(4 * static_cast<size_t>(S));
   p.live = o;   o += up16(4 * static_cast<size_t>(S));
@@ -146,13 +148,13 @@ additive_attention_kernel(const T* __restrict__ keys, const T* __restrict__ q,
   float* sc = reinterpret_cast<float*>(smem + P.sc);   // [S] scores, then rnd(alpha)
   T* q_t = reinterpret_cast<T*>(smem + P.q_t);
   T* w_t = reinterpret_cast<T*>(smem + P.w_t);
-  float* sc_peer = cluster.map_shared_rank(sc, rank ^ 1);
+  uint64_t* sc_bar = bars + 4;   // counts the bytes of the scores stored into sc
   const long long bS = static_cast<long long>(b) * S;
-  cluster_arrive_relaxed();   // waited for before the first remote write
   if (threadIdx.x == 0) {
-    for (int i = 0; i < 4; ++i) mbar_init(bars + i, 1);
+    for (int i = 0; i < 5; ++i) mbar_init(bars + i, 1);
     mbar_init_fence();
   }
+  cluster_arrive();   // after the barriers' start; waited for before the first remote store
   // The launch may overlap the tail of the kernel before it on the stream
   // (launch_dependent): no access to device memory before this wait.
   grid_dependency_wait();
@@ -180,36 +182,40 @@ additive_attention_kernel(const T* __restrict__ keys, const T* __restrict__ q,
   const RowRing vr{ring_v, bars + 2, reinterpret_cast<const char*>(v + bS * H + j0),
                    static_cast<long long>(H * sizeof(T)), live, n, val_rows,
                    static_cast<int>(HH * sizeof(T))};
-  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  const int issue_warp = nwarps - 1;
-  cluster_wait();   // the partner has started: its shared memory may be written
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int issue_warp = nwarps - 1;   // the others compute the scores
   if (warp == issue_warp) {
-    // This warp writes no score, so it arrives at the scores' cluster barrier
-    // now: the copies queue at the rate the memory serves them, and the warp
-    // is held until the last is taken. The key rows first: they are served
-    // in order.
-    cluster_arrive();
+    // The copies queue at the rate the memory serves them, so this warp is
+    // held until the last is taken; it computes no score, and the block
+    // meets it only where a buffer is to be refilled. The key rows first.
+    if (lane == 0 && n > 0) mbar_arrive_expect_tx(sc_bar, 4u * n);
     kr.issue(0);
     kr.issue(1);
     vr.issue(0);
     vr.issue(1);
   }
+  cluster_wait();   // the partner's barriers are set up: its shared memory may be written
   stamp(stamps, 1);
 
-  // 2. scores of this block's live rows, chunk by chunk, into both blocks;
-  // the block meets the issuing warp only where a buffer is to be refilled
+  // 2. scores of this block's live rows, chunk by chunk, stored into both
+  // blocks and counted on each block's score barrier
+  const uint32_t sc_at[kClusterBlocks] = {cluster_addr(sc, 0), cluster_addr(sc, 1)};
+  const uint32_t bar_at[kClusterBlocks] = {cluster_addr(sc_bar, 0), cluster_addr(sc_bar, 1)};
   for (int c = 0; c < kr.chunks(); ++c) {
     const T* rows = reinterpret_cast<const T*>(kr.wait(c));
-    scores_smem<T, 1>(rows, live + own_lo + c * kr.rows, kr.chunk_rows(c), q_t, w_t, sc, sc_peer,
-                      S, A, nwarps - kIssueWarps);
+    scores_smem<T, 1>(rows, live + own_lo + c * kr.rows, kr.chunk_rows(c), q_t, w_t, A,
+                      issue_warp, [&](int, int s, float t) {
+#pragma unroll
+                        for (int r = 0; r < kClusterBlocks; ++r)
+                          store_counted(sc_at[r] + 4u * s, t, bar_at[r]);
+                      });
     if (c + 2 < kr.chunks()) {
       __syncthreads();
       kr.refill(c, issue_warp);
     }
   }
   stamp(stamps, 2);
-  if (warp != issue_warp) cluster_arrive();
-  cluster_wait();   // every score in both blocks; no remote access after this
+  if (n > 0) mbar_wait(sc_bar, 0);   // every live slot's score is in; no remote access after this
   stamp(stamps, 3);
 
   // 3. masked softmax over all live slots, the same in both blocks

@@ -76,9 +76,10 @@ __device__ __forceinline__ __nv_bfloat162 mul_rn(__nv_bfloat162 a, __nv_bfloat16
 
 // Scores of `nr` key rows held in shared memory (row i at rows + i * A, slot
 // slots[i]) for KB query rows q [KB, A] (working type, shared memory):
-// sc[k * S + s] = sum_a tanh(keys + q) * w in float32, one warp a row
-// (warps 0 .. nwarps - 1 of the block; the others return at once), written
-// into sc_own and sc_peer (the partner block's copy). bf16: keys + q is one
+// the score of query row k and slot s, sum_a tanh(keys + q) * w in float32,
+// one warp a row (warps 0 .. nwarps - 1 of the block; the others return at
+// once); lane 0 hands it to emit(k, s, score), which stores it for both
+// blocks of the image's pair. bf16: keys + q is one
 // bf16x2 add (it rounds once, as rnd(float sum) does: the float sum of two
 // bf16 values is exact at these magnitudes) and the two hardware tanh
 // results are rounded by one paired conversion. w's type sets where the
@@ -87,9 +88,9 @@ __device__ __forceinline__ __nv_bfloat162 mul_rn(__nv_bfloat162 a, __nv_bfloat16
 // cvc_tpu/ops/pallas/attention.py forms e * w in the working type; w in
 // float32 multiplies in float32, as decoder_step.py does. In float32 the
 // two are the same.
-template <typename T, int KB, typename W>
+template <typename T, int KB, typename W, typename Emit>
 __device__ void scores_smem(const T* rows, const int* slots, int nr, const T* q, const W* w,
-                            float* sc_own, float* sc_peer, int S, int A, int nwarps) {
+                            int A, int nwarps, Emit emit) {
   constexpr int V = kVec<T>;
   constexpr bool kBF16 = std::is_same<T, __nv_bfloat16>::value;
   constexpr bool kRoundProduct = kBF16 && std::is_same<W, T>::value;
@@ -137,10 +138,7 @@ __device__ void scores_smem(const T* rows, const int* slots, int nr, const T* q,
 #pragma unroll
     for (int k = 0; k < KB; ++k) {
       const float t = warp_sum(acc[k]);
-      if (lane == 0) {
-        sc_own[k * S + s] = t;
-        sc_peer[k * S + s] = t;
-      }
+      if (lane == 0) emit(k, s, t);
     }
   }
 }

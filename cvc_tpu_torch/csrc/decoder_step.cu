@@ -369,8 +369,11 @@ beam_decoder_core_kernel(const T* __restrict__ gates1, const T* __restrict__ c_a
   // 3. scores of this block's live rows, chunk by chunk, into both blocks
   for (int c = 0; c < kr.chunks(); ++c) {
     const T* rows = reinterpret_cast<const T*>(kr.wait(c));
-    scores_smem<T, KB>(rows, live + own_lo + c * kr.rows, kr.chunk_rows(c), q, w_s, sc, sc_peer,
-                       S, A, nwarps);
+    scores_smem<T, KB>(rows, live + own_lo + c * kr.rows, kr.chunk_rows(c), q, w_s, A, nwarps,
+                       [&](int k, int s, float t) {
+                         sc[k * S + s] = t;
+                         sc_peer[k * S + s] = t;
+                       });
     __syncthreads();
     kr.refill(c, 0);
   }

@@ -74,6 +74,26 @@ __device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src, uint32
       : "memory");
 }
 
+// The address, in the cluster's shared window, of `p` (a pointer into this
+// block's shared memory) in the block of rank `rank`.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+
+// Stores one float at `dst` in a block of the cluster and counts its 4
+// bytes on that block's barrier `bar` (both from cluster_addr). A block that
+// has waited for the barrier's bytes sees the values: the hand-over needs
+// no fence, where a release at a cluster barrier waits for every write the
+// thread's block still has in flight.
+__device__ __forceinline__ void store_counted(uint32_t dst, float v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.u32 [%0], %1, [%2];"
+               :
+               : "r"(dst), "r"(__float_as_uint(v)), "r"(bar)
+               : "memory");
+}
+
 // A ring of two shared-memory buffers of `rows` rows each, filled by bulk
 // copies of the rows src + slots[i] * stride for i in a list of n. Chunk c
 // is list entries [c * rows, min((c + 1) * rows, n)) and lands in buffer
@@ -133,9 +153,10 @@ __device__ __forceinline__ void cluster_arrive_relaxed() {
   asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
 }
 
-// The arrival of a later phase of the cluster barrier: it orders this
-// thread's earlier writes (those into a partner's shared memory too) before
-// what the cluster's threads do after their cluster_wait.
+// An arrival that orders this thread's earlier writes (the start of its
+// block's mbarriers, say) before what the cluster's threads do after their
+// cluster_wait. The release waits for every write the thread's block has in
+// flight: cheap at a kernel's start, microseconds while rows stream in.
 __device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
 }
