@@ -8,10 +8,15 @@
 2. Holds each serving kernel against its plain PyTorch version at the
    flagship serving shapes, in bf16 and float32, with a fully masked image
    where attention is involved, the 1280-slot video width for the beam
-   decoder core, and ties plus padded-vocabulary biases for the top-k.
+   decoder core, and ties plus padded-vocabulary biases for the top-k,
+   which also runs ragged cases with the allocator poisoned (N 1 to 640,
+   k 1 to 8, V 128 to 8704) and ties placed where a cluster of 8, 4 or 2
+   blocks splits a row, indices and values exact and all outputs bit-equal
+   across two launches.
    Then the training kernels (LSTM and attention backward, masked cross
    entropy forward and backward) at the c3 training shapes (B 64 and the
-   merged scan's 128, 104 slots with 100 live and a fully masked image,
+   merged scan's 128, the LSTM backward also at R 1 and 13 and as a launch
+   with nothing in it, 104 slots with 100 live and a fully masked image,
    vocabulary 8704 with masked rows), with the allocator's memory set to
    NaN first so that an unwritten output element fails the comparison,
    and the attention backward's dw checked bit-equal across two launches.
@@ -504,26 +509,18 @@ def kernel_phase(sm: Smoke, results: dict) -> None:
         # N = 64, k = 1. The serving path feeds float32 logits.
         V = 8704
         for N, k in ((BATCH * BEAM, BEAM), (BATCH, 1)):
-            def mk_logits():
-                x = randn(N, V, scale=2.0)
-                x[0] = 1.5                           # a whole row of ties
-                x[1, [7, 4000, 30]] = 50.0           # three equal maxima
-                x[:, 8700:] = -1e9                   # padded vocab columns
-                return (x.to(dt).contiguous(), k)
             bytes_ = N * V * sz + N * k * 8 + N * 4
-            sets = [mk_logits() for _ in range(n_sets(bytes_))]
+            sets = [topk_inputs(torch, gen, sm.dev, N, V, k, dt)
+                    for _ in range(n_sets(bytes_))]
             label = f"fused_topk_lse {dname} N={N} V={V} k={k}"
-            gv, gi, gl = topk_select.fused_topk_lse(*sets[0])
-            wv, wi, wl = topk_select.topk_lse_plain(*sets[0])
-            sm.check(bool(torch.equal(gi, wi)),
-                     f"{label}: indices exact")
-            sm.check(bool(torch.equal(gv, wv)), f"{label}: values exact")
-            sm.check(bool((gi[:, :k] < 8700).all()),
-                     f"{label}: padded columns never selected")
-            lse_err = float((gl - wl).abs().max())
-            sm.check(bool(torch.allclose(gl, wl, rtol=1e-5, atol=1e-5)),
-                     f"{label}: lse max_abs_err {lse_err:.3e} "
-                     f"(atol 1e-5, rtol 1e-5)")
+            lse_err = check_topk(sm, label, *sets[0], pad=4)
+            cluster = topk_select.launch_shape(N, V, sz)[0]
+            stamps = torch.zeros((N * cluster, STAMP_SLOTS),
+                                 dtype=torch.int64, device=sm.dev)
+            topk_select.fused_topk_lse(*sets[0], stamps=stamps)
+            phase_line(sm, f"{label} all blocks", stamps, TOPK_PHASES[:2])
+            phase_line(sm, f"{label} rank 0 of {cluster}", stamps[::cluster],
+                       TOPK_PHASES)
 
             def library(x, k_):
                 torch.topk(x, k_, dim=-1)
@@ -533,6 +530,88 @@ def kernel_phase(sm: Smoke, results: dict) -> None:
             record(sm, results, key, f"N={N} V={V} k={k}", dname,
                    topk_select.fused_topk_lse, topk_select.topk_lse_plain,
                    sets, bytes_, 2 * N * V, lse_err, library=library)
+        # ragged shapes: a row alone, N no multiple of anything, a batch of
+        # 128 at beam 5; widths down to one where a cluster's later blocks
+        # get no column
+        for N in TOPK_ROWS:
+            for V_ in TOPK_WIDTHS:
+                for k in TOPK_KS:
+                    check_topk(sm, f"fused_topk_lse {dname} N={N} V={V_} "
+                                   f"k={k}",
+                               *topk_inputs(torch, gen, sm.dev, N, V_, k, dt))
+        # a cluster wider than the row: its later blocks' shares are empty
+        for V_, shape in ((128, (8, 32)), (16, (8, 32)), (16, (4, 64))):
+            for k in TOPK_KS:
+                check_topk(sm, f"fused_topk_lse {dname} N=13 V={V_} k={k}, "
+                               f"cluster {shape[0]} x {shape[1]} threads",
+                           *topk_inputs(torch, gen, sm.dev, 13, V_, k, dt),
+                           shape=shape)
+        # ties across the shares of a cluster's blocks, at every cluster size
+        for shape in ((8, 288), (4, 288), (2, 288), (1, 512), (8, 32)):
+            for k in TOPK_KS:
+                x = topk_tie_inputs(torch, gen, sm.dev, V, dt)
+                label = (f"fused_topk_lse {dname} ties at share edges, "
+                         f"cluster {shape[0]} x {shape[1]} threads, k={k}")
+                check_topk(sm, label, x, k, shape=shape, pad=4, pad_rows=[3])
+                if k > 1:
+                    want = topk_select.topk_lse_plain(x, k)
+                    swapped = want[1].clone()
+                    swapped[1, [0, 1]] = want[1][1, [1, 0]]
+                    sm.check(bool(want[0][1, 0] == want[0][1, 1])
+                             and not torch.equal(swapped, want[1]),
+                             f"{label}: a copy with two equal values' "
+                             f"indices swapped is rejected")
+
+
+TOPK_PHASES = ("loads + thread math", "warp merges + hand-over",
+               "rank 0: the row's lists in", "rank 0: last merge + store")
+TOPK_ROWS = (1, 13, BATCH, BATCH * BEAM, 2 * BATCH * BEAM)
+TOPK_WIDTHS = (128, 1024, 8704)
+TOPK_KS = (1, 3, 5, 8)
+
+
+def topk_tie_inputs(torch, gen, dev, V, dt):
+    """[8, V] logits whose ties sit where a cluster of 8, 4 or 2 blocks
+    splits a row (columns 0, V/8 - 1, V/8, V/2, V - 1 and their like): row
+    0 all ties, row 1 five equal maxima, row 2 one maximum and six equal
+    runners-up astride share edges, row 3 ties beside the padded columns
+    (the last four, at -1e9), row 4 equal maxima in the first and the last
+    column only; the other rows random."""
+    x = torch.randn((8, V), generator=gen, device=dev) * 2.0
+    x[0] = 1.5
+    x[1, [0, V // 8 - 1, V // 8, V // 2, V - 1]] = 50.0
+    x[2, 5] = 60.0
+    x[2, [V // 8 - 1, V // 8, V // 4 - 1, V // 4, V // 2 - 1, V // 2]] = 40.0
+    x[3, V - 4:] = -1e9
+    x[3, [0, V // 2 - 1, V // 2, V - 6, V - 5]] = 30.0
+    x[4, [0, V - 1]] = 45.0
+    return x.to(dt).contiguous()
+
+
+def check_topk(sm, label, x, k, shape=None, pad=0, pad_rows=None) -> float:
+    """The top-k + logsumexp against its plain version with the allocator
+    poisoned first: indices and values exact, the last `pad` columns (at
+    -1e9 in every row, or in `pad_rows`) never selected, lse within 1e-5,
+    and all three outputs bit-equal across two launches. Returns lse's max
+    abs error."""
+    torch = sm.torch
+    from cvc_tpu_torch.ops.kernels import topk_select
+    poison(torch, sm.dev)
+    gv, gi, gl = topk_select.fused_topk_lse(x, k, shape=shape)
+    wv, wi, wl = topk_select.topk_lse_plain(x, k)
+    again = topk_select.fused_topk_lse(x, k, shape=shape)
+    lse_err = float((gl - wl).abs().max())
+    sm.check(bool(torch.equal(gi, wi)) and bool(torch.equal(gv, wv)),
+             f"{label}: indices and values exact")
+    if pad:
+        rows = gi if pad_rows is None else gi[pad_rows]
+        sm.check(bool((rows < x.shape[1] - pad).all()),
+                 f"{label}: padded columns never selected")
+    sm.check(bool(torch.allclose(gl, wl, rtol=1e-5, atol=1e-5)),
+             f"{label}: lse max_abs_err {lse_err:.3e} (atol 1e-5, rtol 1e-5)")
+    sm.check(all(bool(torch.equal(a, b)) for a, b in zip((gv, gi, gl), again)),
+             f"{label}: vals, idxs, lse bit-equal across two launches")
+    return lse_err
 
 
 def poison(torch, dev) -> None:
@@ -596,6 +675,26 @@ def lstm_inputs(torch, gen, dev, R, H, dt):
     """Seeded random (gates [R, 4H], c [R, H]) of the LSTM gates forward."""
     randn = seeded_randn(torch, gen, dev, dt)
     return randn(R, 4 * H, scale=2.0), randn(R, H)
+
+
+def lstm_bwd_inputs(torch, gen, dev, R, H, dt):
+    """Seeded random (gates [R, 4H], c, gh, gc [R, H]) of the LSTM gates
+    backward."""
+    randn = seeded_randn(torch, gen, dev, dt)
+    return (randn(R, 4 * H, scale=2.0), randn(R, H), randn(R, H),
+            randn(R, H))
+
+
+def topk_inputs(torch, gen, dev, N, V, k, dt):
+    """Seeded random (logits [N, V], k) of the top-k + logsumexp: row 0 all
+    ties, three equal maxima in row 1 (where there is one), and the last
+    four columns at -1e9, as the padded vocabulary's biases leave them."""
+    x = torch.randn((N, V), generator=gen, device=dev) * 2.0
+    x[0] = 1.5
+    if N > 1 and V > 4000:
+        x[1, [7, 4000, 30]] = 50.0
+    x[:, V - 4:] = -1e9
+    return (x.to(dt).contiguous(), k)
 
 
 def attn_inputs(torch, gen, dev, B, S, A, H, mask, dt):
@@ -673,14 +772,13 @@ def train_kernel_phase(sm: Smoke, results: dict) -> None:
     for dname, dt in dtypes.items():
         sz = torch.tensor([], dtype=dt).element_size()
 
-        # row 2: LSTM gates backward, R = 64 and 128, H = 1024
-        for R in (TRAIN_BATCH, 2 * TRAIN_BATCH):
-            H = 1024
-            mk = lambda: (randn(R, 4 * H, scale=2.0, dtype=dt),
-                          randn(R, H, dtype=dt), randn(R, H, dtype=dt),
-                          randn(R, H, dtype=dt))
+        # row 2: LSTM gates backward, H = 1024: the train step's R = 64,
+        # the merged scan's 128, and R = 1 and 13; then R = 1, H = 8, a
+        # launch with nothing in it
+        for R, H in (*((r, 1024) for r in LSTM_ROWS), (1, 8)):
             per_set = R * H * 12 * sz
-            sets = [mk() for _ in range(n_sets(per_set))]
+            sets = [lstm_bwd_inputs(torch, gen, sm.dev, R, H, dt)
+                    for _ in range(min(128, n_sets(per_set)))]
             poison(torch, sm.dev)
             got = lstm.fused_lstm_gates_bwd(*sets[0])
             want = lstm.lstm_gates_bwd_plain(*sets[0])
@@ -693,7 +791,8 @@ def train_kernel_phase(sm: Smoke, results: dict) -> None:
                            perturb_typical(w), w, *tols[n])
             key = ("fused_lstm_gates_bwd" if dname == "float32"
                    and R == TRAIN_BATCH else None)
-            record(sm, results, key, f"R={R} H={H}", dname,
+            record(sm, results, key, f"R={R} H={H}"
+                   + (" (launch floor)" if H == 8 else ""), dname,
                    lstm.fused_lstm_gates_bwd, lstm.lstm_gates_bwd_plain,
                    sets, per_set, R * H * 40, err)
 
@@ -923,6 +1022,13 @@ def reject_phase(sm: Smoke) -> None:
             z(4, 131), 2),
         "fused_topk_lse misaligned logits": lambda: (
             topk_select.fused_topk_lse(off(4, 128), 2)),
+        "fused_topk_lse a cluster of 3 blocks": lambda: (
+            topk_select.fused_topk_lse(z(4, 128), 2, shape=(3, 64))),
+        "fused_topk_lse stamps of another shape": lambda: (
+            topk_select.fused_topk_lse(
+                z(4, 128), 2, shape=(2, 64),
+                stamps=torch.zeros((4, STAMP_SLOTS), dtype=torch.int64,
+                                   device=sm.dev))),
         "fused_lstm_gates_bwd H=18": lambda: lstm.fused_lstm_gates_bwd(
             z(4, 72), z(4, 18), z(4, 18), z(4, 18)),
         "fused_lstm_gates_bwd misaligned gh": lambda: (

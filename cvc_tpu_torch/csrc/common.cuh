@@ -87,20 +87,34 @@ __device__ __forceinline__ void grid_dependency_wait() {
   asm volatile("griddepcontrol.wait;" ::: "memory");
 }
 
+// The same launch for a kernel without __cluster_dims__ whose blocks are to
+// run as clusters of `cluster` consecutive blocks (a size chosen at launch:
+// 1, 2, 4 or 8, and grid.x a multiple of it); cluster 0 sets no cluster.
 template <typename... Params, typename... Args>
-cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem,
-                             cudaStream_t stream, Args... args) {
+cudaError_t launch_dependent_cluster(void (*kernel)(Params...), dim3 grid, dim3 block,
+                                     unsigned cluster, size_t smem, cudaStream_t stream,
+                                     Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = block;
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
+  cudaLaunchAttribute attr[2];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
+  attr[1].id = cudaLaunchAttributeClusterDimension;
+  attr[1].val.clusterDim.x = cluster;
+  attr[1].val.clusterDim.y = 1;
+  attr[1].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = cluster > 0 ? 2 : 1;
   return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem,
+                             cudaStream_t stream, Args... args) {
+  return launch_dependent_cluster(kernel, grid, block, 0, smem, stream, args...);
 }
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }

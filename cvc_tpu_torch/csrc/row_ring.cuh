@@ -1,9 +1,10 @@
-// Pieces of the kernels that split an image over a cluster of blocks
-// (decoder_step.cu, attention_bwd.cu): rows of a matrix prefetched into
-// shared memory by the Tensor Memory Accelerator (1-D bulk copies,
-// `cp.async.bulk`, completing on an `mbarrier`), the split cluster
-// barrier, the fixed-order sum of thread groups' partial sums, and the
-// phase clock stamps.
+// Pieces of the kernels that split an image or a row over a cluster of
+// blocks (decoder_step.cu, attention.cu, attention_bwd.cu, topk_select.cu):
+// rows of a matrix prefetched into shared memory by the Tensor Memory
+// Accelerator (1-D bulk copies, `cp.async.bulk`, completing on an
+// `mbarrier`), stores into another block's shared memory counted on its
+// mbarrier, the split cluster barrier, the fixed-order sum of thread
+// groups' partial sums, and the phase clock stamps.
 #pragma once
 
 #include "common.cuh"
@@ -91,6 +92,17 @@ __device__ __forceinline__ void store_counted(uint32_t dst, float v, uint32_t ba
   asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.u32 [%0], %1, [%2];"
                :
                : "r"(dst), "r"(__float_as_uint(v)), "r"(bar)
+               : "memory");
+}
+
+// The same for 8 bytes at an 8-byte aligned `dst`: `lo` lands at dst, `hi`
+// at dst + 4 (a value with its index, or a pair of floats, in one store).
+__device__ __forceinline__ void store_counted(uint32_t dst, uint32_t lo, uint32_t hi,
+                                              uint32_t bar) {
+  const unsigned long long v = (static_cast<unsigned long long>(hi) << 32) | lo;
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 [%0], %1, [%2];"
+               :
+               : "r"(dst), "l"(v), "r"(bar)
                : "memory");
 }
 

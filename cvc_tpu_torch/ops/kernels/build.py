@@ -44,7 +44,7 @@ SIGNATURES = {
     "cvc_masked_xent_fwd": [_P] * 4 + [_I] * 3 + [_P],
     "cvc_masked_xent_bwd": [_P] * 5 + [_I] * 3 + [_P],
     "cvc_beam_decoder_core": [_P] * 13 + [_I] * 6 + [_P],
-    "cvc_topk_lse": [_P] * 4 + [_I] * 4 + [_P],
+    "cvc_topk_lse": [_P] * 5 + [_I] * 6 + [_P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -10,13 +10,15 @@ instead of saving them. The passes are elementwise with no data reuse, so
 Triton would serve as well as CUDA here; they are written in CUDA C++ so
 that all the port's kernels share one build. At the model's shapes (R 64
 or 128, H 1024) a call moves under 2 MB, so its time is a launch, one round
-trip to memory and one thread's math: the forward gives a thread 4 bytes
-of units (one in float32, two in bf16), issues a thread's five loads
-before any math, in bf16 computes the sigmoids and tanhs on the hardware
-tanh (the results are rounded to bf16 anyway), and is launched so that
-its scheduling may overlap the tail of the kernel before it on the stream
-(it waits for that kernel's completion before it touches device memory);
-the backward moves 16-byte vectors of the four gate blocks and the cell.
+trip to memory and one thread's math: both passes give a thread 4 bytes
+of units (one in float32, two in bf16) while the card holds all the
+threads at once, issue a thread's loads (the forward's five, the
+backward's seven) before any math, in bf16 compute the sigmoids and tanhs
+on the hardware tanh (the results are rounded to bf16 anyway, and the
+backward then differentiates the function the forward computed), and are
+launched so that their scheduling may overlap the tail of the kernel
+before them on the stream (they wait for that kernel's completion before
+they touch device memory).
 """
 
 from __future__ import annotations

@@ -5,8 +5,16 @@ Replaces `cvc_tpu/ops/pallas/topk_select.py::fused_topk_lse`: one read of
 each [N, V] logits row gives the k largest values (float32) with their
 indices (int32) and the row's logsumexp (float32). The order is exactly
 `lax.top_k`'s: descending value, the lowest index first among equal
-values (`torch.topk` does not promise that). On the card the work is
-bound by bytes: one thread block per row reads it once.
+values (`torch.topk` does not promise that). A decode step's logits are
+a few megabytes, so a call's time is a launch, one round trip to memory
+and the merge, not the bytes: a row is split over a thread-block cluster
+whose size `launch_shape` picks from N and V so that the launch runs in
+one wave on every SM, a thread loads its few 16-byte vectors before any
+math and keeps its two best, a warp picks its k by warp-wide reductions
+and hands them to the cluster's first block by counted stores into its
+shared memory, where one warp picks the row's k. No block-wide barrier,
+bit-equal results across launches, and a programmatic dependent launch
+behind the logits product.
 """
 
 from __future__ import annotations
@@ -17,6 +25,38 @@ from cvc_tpu_torch.ops.kernels import build
 
 MAX_K = 8
 _NEG = -3.0e38
+# the launch: an H100 has 132 SMs, and at the kernel's 40 registers a thread
+# an SM holds 48 warps; a block has at most 16 warps, a cluster at most 8
+# blocks (the portable size), a thread at most 4 vectors at a time
+SMS, SM_WARPS = 132, 48
+CARD_WARPS = SMS * SM_WARPS
+MAX_WARPS, MAX_CLUSTER, MAX_VECS = 16, 8, 4
+
+
+def launch_shape(N: int, V: int, elem_size: int) -> tuple[int, int]:
+    """(blocks in a row's cluster, threads in a block) of the kernel's
+    launch for [N, V] logits of `elem_size` bytes an element.
+
+    A row gets the warps that give each thread MAX_VECS 16-byte vectors
+    (a warp's selection costs as much as a dozen elements a thread, so
+    more and thinner warps lose), but no more than its share of the warps
+    the card holds at once, so that the launch runs in one wave; a thread
+    with more than MAX_VECS vectors walks them in batches. The warps are
+    spread over the smallest cluster (1, 2, 4 or 8 blocks) whose blocks
+    stay within MAX_WARPS, and over twice as many blocks while that still
+    leaves SMs without a block. At V 8704 in float32: 2 blocks of 288
+    threads a row for N 64 to 320, one block of 288 (two batches) from
+    N 640 on, 8 blocks of 96 for a row alone."""
+    vectors = max(1, V * elem_size // 16)
+    budget = max(1, CARD_WARPS // max(N, 1))
+    warps = min(-(-vectors // (32 * MAX_VECS)), budget)
+    cluster = 1
+    while cluster < MAX_CLUSTER and warps > cluster * MAX_WARPS:
+        cluster *= 2
+    while (cluster < MAX_CLUSTER and 2 * cluster * N <= SMS
+           and warps >= 2 * cluster):
+        cluster *= 2
+    return cluster, 32 * min(MAX_WARPS, -(-warps // cluster))
 
 
 def topk_lse_plain(logits: torch.Tensor, k: int):
@@ -39,13 +79,17 @@ def topk_lse_plain(logits: torch.Tensor, k: int):
             lse)
 
 
-def fused_topk_lse(logits: torch.Tensor, k: int):
+def fused_topk_lse(logits: torch.Tensor, k: int, stamps=None, shape=None):
     """logits [N, V] float32 or bfloat16 -> (vals [N,k] float32,
     idxs [N,k] int32, lse [N] float32).
 
     CPU tensors take `topk_lse_plain`; CUDA tensors launch the kernel,
     which takes 1 <= k <= min(8, V), V a multiple of 16 bytes of elements
-    (the vocabulary padded to 128 is) and 16-byte aligned logits."""
+    (the vocabulary padded to 128 is) and 16-byte aligned logits. `shape`
+    is (blocks in a row's cluster, threads in a block) where it is not
+    `launch_shape`'s (tuning, and tests of the cluster's edges); `stamps`
+    (int64 [N * blocks in a cluster, 8]) receives each block's clock at
+    the ends of its phases."""
     if build.on_cpu(logits):
         return topk_lse_plain(logits, k)
     name = "fused_topk_lse"
@@ -57,11 +101,23 @@ def fused_topk_lse(logits: torch.Tensor, k: int):
         raise ValueError(f"{name}: k={k}, the kernel takes 1..min({MAX_K}, V)")
     build.check_vectors(name, {"logits": logits},
                         {"V": (V, build.vector_elems(logits))})
+    cluster, threads = shape or launch_shape(N, V, logits.element_size())
+    if (cluster not in (1, 2, 4, 8) or threads % 32
+            or not 32 <= threads <= 32 * MAX_WARPS):
+        raise ValueError(f"{name}: shape {(cluster, threads)} is not (1, 2, "
+                         f"4 or 8 blocks, 32..{32 * MAX_WARPS} threads in "
+                         f"warps)")
+    if stamps is not None:
+        build.check_cuda(name, {"stamps": stamps}, dtype=torch.int64,
+                         device=dev)
+        if stamps.shape != (N * cluster, build.STAMP_SLOTS):
+            raise ValueError(f"{name}: stamps {tuple(stamps.shape)}, expected "
+                             f"({N * cluster}, {build.STAMP_SLOTS})")
     vals = torch.empty((N, k), dtype=torch.float32, device=dev)
     idxs = torch.empty((N, k), dtype=torch.int32, device=dev)
     lse = torch.empty((N,), dtype=torch.float32, device=dev)
-    build.launch("cvc_topk_lse", logits, vals, idxs, lse, N, V, k,
-                 build.dtype_code(name, logits.dtype))
+    build.launch("cvc_topk_lse", logits, vals, idxs, lse, stamps, N, V, k,
+                 cluster, threads, build.dtype_code(name, logits.dtype))
     fused_topk_lse.launches += 1
     return vals, idxs, lse
 

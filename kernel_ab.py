@@ -20,9 +20,21 @@ its own, it builds that tree's kernels and prints, in bf16 and float32:
   this harness); and of the forward at S 104 and the LSTM gates at R 64
   with a small PyTorch `add` before each call (the pair's time: on the
   main paths the kernel before a launch is PyTorch's, which matters for
-  a launch that may overlap its predecessor's tail);
+  a launch that may overlap its predecessor's tail); of
+  `fused_lstm_gates_bwd` at the same three shapes; of `fused_topk_lse` at
+  V 8704, N 320 with k 5 (a beam step) and N 64 with k 1 (a greedy step),
+  and at N 1, V 128 (a launch with nothing in it); and of the beam step's
+  top-k after a PyTorch `add` over the logits (the bias add that precedes
+  it on the serving paths) and after a cuBLAS product of the beam step's
+  size ([320, 1024] x [1024, 8704], bf16), with that product alone beside
+  it, so that the pair less the product is what the top-k adds behind a
+  library kernel;
+- where the tree's top-k takes `shape`, its float32 time at those two
+  shapes under other launch shapes than the tree's own rule picks
+  (blocks in a row's cluster, threads in a block);
 - where the tree's wrapper takes `stamps`, each phase stamp's mean over the
-  blocks, in us since the block's start (one launch, inputs warm).
+  blocks that wrote it, in us since the block's start (one launch, inputs
+  warm).
 
 Exits non-zero when no CUDA device is present or a tree fails.
 """
@@ -37,6 +49,10 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 B, A, H, LIVE = 64, 512, 1024, 100
+V, BEAM = 8704, 5
+# (blocks in a row's cluster, threads in a block) of the top-k's sweep
+TOPK_SHAPES = ((1, 288), (1, 512), (2, 160), (2, 288), (2, 384), (4, 160),
+               (4, 288), (8, 96), (8, 288))
 SETS = 8                     # input sets of the attention kernels and the
                              # beam core: together beyond L2
 
@@ -51,7 +67,8 @@ def measure(tree: Path) -> None:
                                                   HERE / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    from cvc_tpu_torch.ops.kernels import attention, build, decoder_step, lstm
+    from cvc_tpu_torch.ops.kernels import (attention, build, decoder_step,
+                                           lstm, topk_select)
     if not Path(build.__file__).resolve().is_relative_to(tree):
         raise RuntimeError(f"imported {build.__file__}, not {tree}'s package")
     build.library()
@@ -65,31 +82,73 @@ def measure(tree: Path) -> None:
         mask[3] = 0.0
         return mask
 
+    def elem(dt):
+        return torch.tensor([], dtype=dt).element_size()
+
+    def no_stamps(dt):
+        return 0
+
     def image_case(name, S, fn, make):
         """A kernel over B images of S slots: (name, label, fn, input sets
-        of a type, blocks that write stamps)."""
+        of a type, blocks of a type that write stamps)."""
         return (name, f"B={B} S={S}", fn,
                 lambda dt: [make(masked(S), dt) for _ in range(SETS)],
-                build.CLUSTER_BLOCKS * B if slots is not None else 0)
+                lambda dt: build.CLUSTER_BLOCKS * B if slots else 0)
 
-    def lstm_case(R, H_):
+    def lstm_case(R, H_, bwd=False):
         def sets(dt):
-            per_set = R * H_ * 7 * torch.tensor([], dtype=dt).element_size()
-            return [cs.lstm_inputs(torch, gen, sm.dev, R, H_, dt)
+            per_set = R * H_ * (12 if bwd else 7) * elem(dt)
+            inputs = cs.lstm_bwd_inputs if bwd else cs.lstm_inputs
+            return [inputs(torch, gen, sm.dev, R, H_, dt)
                     for _ in range(min(128, cs.n_sets(per_set)))]
+        if bwd:
+            return ("fused_lstm_gates_bwd", f"R={R} H={H_}",
+                    lstm.fused_lstm_gates_bwd, sets, no_stamps)
         return ("fused_lstm_gates", f"R={R} H={H_}", lstm.fused_lstm_gates,
-                sets, 0)
+                sets, no_stamps)
 
-    def after_add(case):
-        """The case with a small PyTorch `add` before each call, as on the
-        main paths, where the kernel before a launch is PyTorch's and never
-        the same kernel again: the pair's time, without stamps."""
+    def topk_case(N, k, V_=V):
+        def sets(dt):
+            return [cs.topk_inputs(torch, gen, sm.dev, N, V_, k, dt)
+                    for _ in range(min(128, cs.n_sets(N * V_ * elem(dt))))]
+        shape = getattr(topk_select, "launch_shape", None)
+
+        def blocks(dt):                # one block a row where no cluster
+            return N * (shape(N, V_, elem(dt))[0] if shape else 1)
+        return ("fused_topk_lse", f"N={N} V={V_} k={k}",
+                topk_select.fused_topk_lse, sets, blocks)
+
+    def after_add(case, arg=1):
+        """The case with a PyTorch `add` over its argument `arg` before each
+        call, as on the main paths, where the kernel before a launch is
+        PyTorch's and never the same kernel again: the pair's time,
+        without stamps."""
         name, label, fn, make, _ = case
 
         def pair(*args):
-            torch.add(args[1], 1.0)
+            torch.add(args[arg], 1.0)
             return fn(*args)
-        return (name, label + " after a PyTorch add", pair, make, 0)
+        return (name, label + " after a PyTorch add", pair, make, no_stamps)
+
+    def after_product(case):
+        """The case with a cuBLAS product of the beam step's size before
+        each call, and that product alone."""
+        name, label, fn, make, _ = case
+        x = torch.randn((B * BEAM, H), generator=gen,
+                        device=sm.dev).bfloat16()
+        w = torch.randn((H, V), generator=gen, device=sm.dev).bfloat16()
+        out = torch.empty((B * BEAM, V), dtype=torch.bfloat16, device=sm.dev)
+
+        def pair(*args):
+            torch.mm(x, w, out=out)
+            return fn(*args)
+
+        def alone(*args):
+            torch.mm(x, w, out=out)
+        shape = f"[{B * BEAM}, {H}] x [{H}, {V}] bf16"
+        return ((name, f"{label} after a cuBLAS product {shape}", pair, make,
+                 no_stamps),
+                ("torch.mm", f"{shape} alone", alone, make, no_stamps))
 
     cases = (
         image_case("fused_beam_decoder_core", 128,
@@ -111,11 +170,16 @@ def measure(tree: Path) -> None:
             lambda m, dt: cs.attn_inputs(torch, gen, sm.dev, B, 104, A, H, m,
                                          dt))),
         lstm_case(64, H), lstm_case(128, H), lstm_case(1, 8),
-        after_add(lstm_case(64, H)))
+        after_add(lstm_case(64, H)),
+        *(lstm_case(R, H_, bwd=True) for R, H_ in ((64, H), (128, H), (1, 8))),
+        topk_case(B * BEAM, BEAM), topk_case(B, 1), topk_case(1, 1, 128),
+        after_add(topk_case(B * BEAM, BEAM), arg=0),
+        *after_product(topk_case(B * BEAM, BEAM)))
     for dname, dt in (("bfloat16", torch.bfloat16),
                       ("float32", torch.float32)):
-        for name, label, fn, make, blocks in cases:
+        for name, label, fn, make, stamp_blocks in cases:
             sets = make(dt)
+            blocks = stamp_blocks(dt)
             ms = sm.time_ms([lambda a=a: fn(*a) for a in sets], 200)[0]
             line = {"tree": str(tree), "kernel": name, "case": label,
                     "dtype": dname, "ms": ms}
@@ -131,6 +195,18 @@ def measure(tree: Path) -> None:
                     float(rel[written[:, i], i].mean())
                     for i in range(1, slots) if written[:, i].any()]
             print("kernel_ab " + json.dumps(line), flush=True)
+            del sets
+    if "shape" in inspect.signature(topk_select.fused_topk_lse).parameters:
+        for N, k in ((B * BEAM, BEAM), (B, 1)):
+            name, label, fn, make, _ = topk_case(N, k)
+            sets = make(torch.float32)
+            for shape in TOPK_SHAPES:
+                ms = sm.time_ms([lambda a=a: fn(*a, shape=shape)
+                                 for a in sets], 200)[0]
+                print("kernel_ab " + json.dumps(
+                    {"tree": str(tree), "kernel": name, "dtype": "float32",
+                     "case": f"{label} as {shape[0]} x {shape[1]} threads",
+                     "ms": ms}), flush=True)
             del sets
 
 

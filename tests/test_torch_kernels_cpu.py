@@ -155,6 +155,13 @@ def test_beam_core_oracle_matches_pallas(B, K, empty, live, dtype):
     (12, 200, "float32", 5),     # V not a multiple of 128
     (9, 131, "float32", 1),      # the greedy case
     (7, 300, "bfloat16", 8),
+    # the CUDA kernel's ragged rows and the other k; the flagship width
+    (1, 1024, "float32", 1),
+    (1, 8704, "float32", 5),
+    (13, 8704, "float32", 8),
+    (13, 1024, "bfloat16", 3),
+    (13, 128, "float32", 8),
+    (64, 8704, "bfloat16", 1),
 ])
 def test_topk_lse_plain_matches_pallas(n, v, dtype, k):
     rng = np.random.default_rng(n + v)
@@ -177,6 +184,68 @@ def test_topk_lse_plain_tie_order_matches_pallas():
     tv, ti, _ = topk_select.topk_lse_plain(torch.from_numpy(x), 5)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [1, 3, 5, 8])
+@pytest.mark.parametrize("v", [1024, 8704])
+def test_topk_lse_plain_ties_at_share_edges_match_pallas_and_lax(v, k, dtype):
+    """Equal maxima and equal runners-up at the columns where the CUDA
+    kernel splits a row over a cluster of 8, 4 or 2 blocks (0, V/8 - 1, V/8,
+    V/2, V - 1 and their like): the plain version, the kernel's oracle on
+    the card, against the Pallas kernel in interpret mode and against
+    `jax.lax.top_k`; indices and values exact, lse at rtol 1e-5."""
+    rng = np.random.default_rng(v + k)
+    x = rng.normal(size=(6, v)).astype(np.float32) * 2.0
+    x[0] = 1.5                                       # a whole row of ties
+    x[1, [0, v // 8 - 1, v // 8, v // 2, v - 1]] = 50.0
+    x[2, 5] = 60.0                                   # equal runners-up
+    x[2, [v // 8 - 1, v // 8, v // 4 - 1, v // 4, v // 2 - 1, v // 2]] = 40.0
+    x[3, v - 4:] = -1e9                              # padded columns
+    x[3, [0, v // 2 - 1, v // 2, v - 6, v - 5]] = 30.0
+    x[4, [0, v - 1]] = 45.0
+    jx, tx = _pair(x, dtype)
+    jv, ji, jl = j_topk(jx, k, interpret=True)
+    lv, li = jax.lax.top_k(jx.astype(jnp.float32), k)
+    tv, ti, tl = topk_select.topk_lse_plain(tx, k)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(li))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(lv))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5)
+    assert (ti[3].numpy() < v - 4).all()
+
+
+@pytest.mark.parametrize("N,V,elem,want", [
+    (64, 8704, 4, (2, 288)),      # a greedy step: four vectors a thread
+    (320, 8704, 4, (2, 288)),     # a beam step
+    (640, 8704, 4, (1, 288)),     # N alone fills the card: two batches
+    (320, 8704, 2, (1, 288)),
+    (64, 8704, 2, (2, 160)),      # two blocks a row while SMs stand empty
+    (1, 8704, 4, (8, 96)),        # a row alone: the largest cluster
+    (1, 128, 4, (1, 32)),
+])
+def test_topk_launch_shape(N, V, elem, want):
+    """The cluster size and block size the top-k kernel is launched with at
+    the model's shapes."""
+    assert topk_select.launch_shape(N, V, elem) == want
+
+
+@pytest.mark.parametrize("N", [1, 13, 64, 128, 320, 640, 1344, 6000, 10**6])
+def test_topk_launch_shape_fits_the_card(N):
+    """Any N: a cluster of 1, 2, 4 or 8 blocks of whole warps, at most 16,
+    and no more warps in all than the card holds at once while a row can
+    still have one."""
+    for V, elem in ((8704, 4), (8704, 2), (1024, 4), (128, 2), (16, 2),
+                    (2 ** 20, 4)):
+        cluster, threads = topk_select.launch_shape(N, V, elem)
+        assert cluster in (1, 2, 4, 8)
+        assert threads % 32 == 0 and 32 <= threads <= 512
+        warps = cluster * threads // 32
+        vectors = V * elem // 16
+        assert warps <= max(1, -(-vectors // 32)) + cluster - 1
+        if N <= topk_select.CARD_WARPS:
+            assert N * (warps - cluster + 1) <= topk_select.CARD_WARPS
 
 
 def test_topk_lse_plain_vocab_pad_bias_matches_pallas():
@@ -249,9 +318,12 @@ GRAD_TOL = dict(rtol=2e-4, atol=2e-5)   # tests/test_pallas_kernels.py's
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_lstm_gates_bwd_plain_matches_pallas_vjp(dtype):
-    rng = np.random.default_rng(11)
-    R, H = 10, 16
+@pytest.mark.parametrize("R", [10, 1, 13])
+def test_lstm_gates_bwd_plain_matches_pallas_vjp(R, dtype):
+    """R 10 as the JAX tests run it, and the CUDA kernel's ragged rows: one
+    row, and 13, no multiple of the Pallas row block (4)."""
+    rng = np.random.default_rng(11 if R == 10 else R)
+    H = 16
     f = lambda *s: rng.normal(size=s).astype(np.float32)
     jg, tg = _pair(f(R, 4 * H), dtype)
     jc, tc = _pair(f(R, H), dtype)
