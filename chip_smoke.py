@@ -19,7 +19,11 @@
    with nothing in it, 104 slots with 100 live and a fully masked image,
    vocabulary 8704 with masked rows), with the allocator's memory set to
    NaN first so that an unwritten output element fails the comparison,
-   and the attention backward's dw checked bit-equal across two launches.
+   and the attention backward's dw checked bit-equal across two launches,
+   and without dv (as the stacked-gradient scan calls it: dkeys, dq and dw
+   bit-equal to the launch with dv). The masked cross entropy's forward
+   also runs ragged cases (N 1, 13 and 1344, V 128 to 20480, targets -1
+   and V, all rows masked), nll bit-equal across two launches.
    The three kernels that split images over clusters of blocks (the beam
    decoder core and the attention forward and backward) also run ragged
    cases against their plain versions, in bf16 and float32, with the
@@ -48,15 +52,23 @@
    greedy decoding. Every launch counter is set to 0 before each path
    and read after it. In float32 the kernel path's tokens are compared
    with the plain path's on the card. Reports beam-5 and greedy
-   captions/s in bf16.
+   captions/s in bf16. Beam 10, above the kernels' 8 beams: auto
+   dispatch decodes on the plain path (no launch, the plain path's
+   tokens), and an explicit use_pallas or pallas_select True is refused
+   when the Captioner is built.
 4. Drives the training path at the widths of
    `configs/c3_flickr_cyclical.json` with seeded random weights and one
    seeded random batch of 64: `make_train_step` for 5 steps in float32
-   and bf16 (losses and gradient norms finite, the loss falling), one step
-   of the merged GT-query scan, the launch counters read after every
-   step against the counts the code implies, the float32 kernel path's
-   loss, gradients and Adam step against the plain path's, and ms a step
-   of both paths with one profiled step.
+   and bf16 through the stacked-gradient scan (losses and gradient norms
+   finite, the loss falling), one step each of the merged GT-query scan,
+   the per-step scan (stacked_grad=False), remat and the plain path, the
+   launch counters read after every step against the counts the code
+   implies; the float32 kernel path's loss, gradients and Adam step
+   against the plain path's; the stacked scan's loss and gradients
+   against the per-step scan's (argmax and merged GT-query) and the remat
+   step's, at `grad_tol`; ms a step of the stacked and per-step kernel
+   paths and the plain path in both types, with one profiled step of each
+   kernel path (launches, float adds, busy time).
 5. Prints one `{"kernels": [...]}` line, then, as the last line,
    `{"ok": true, "device": {...}}`.
 
@@ -79,6 +91,7 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 
 HBM_BYTES_PER_S = 3.35e12                    # H100 SXM
 PEAK_OPS = {"bfloat16": 989e12,              # dense bf16 tensor cores
@@ -91,7 +104,7 @@ N_REQUESTS, LIVE_REGIONS = 128, 100
 WINDOWS = 5                                  # timed windows of each rate
 TRAIN_BATCH, TRAIN_SLOTS = 64, 104           # configs/c3_flickr_cyclical.json
 TRAIN_STEPS = 5                              # steps on one repeated batch
-TRAIN_TIMED = 10                             # timed steps of each path
+TRAIN_TIMED = 10                             # timed steps of each path (even)
 DEVICE = "cuda"
 
 
@@ -697,6 +710,17 @@ def topk_inputs(torch, gen, dev, N, V, k, dt):
     return (x.to(dt).contiguous(), k)
 
 
+def xent_inputs(torch, gen, dev, N, V, dt, live=0.6):
+    """Seeded random (logits [N, V], targets [N] int32, mask [N] float32)
+    of the masked cross entropy: about a `live` share of the rows unmasked
+    (the train step's masks leave ~60%: the steps after a caption's end)."""
+    x = seeded_randn(torch, gen, dev, dt)(N, V, scale=2.0)
+    tgt = torch.randint(0, V, (N,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    m = (torch.rand((N,), generator=gen, device=dev) < live).float()
+    return x, tgt, m
+
+
 def attn_inputs(torch, gen, dev, B, S, A, H, mask, dt):
     """Seeded random (keys, q, w, v, mask) of the attention forward at the
     model's scales (v after a relu, as the region encoder leaves it)."""
@@ -765,10 +789,6 @@ def train_kernel_phase(sm: Smoke, results: dict) -> None:
     gen = torch.Generator(device=sm.dev).manual_seed(1)
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-    def randn(*shape, scale=1.0, dtype=torch.float32):
-        x = torch.randn(shape, generator=gen, device=sm.dev) * scale
-        return x.to(dtype).contiguous()
-
     for dname, dt in dtypes.items():
         sz = torch.tensor([], dtype=dt).element_size()
 
@@ -824,6 +844,16 @@ def train_kernel_phase(sm: Smoke, results: dict) -> None:
                    attention.additive_attention_bwd_plain, sets, bytes_,
                    ops, err)
             if B == TRAIN_BATCH:
+                # without dv, as the stacked-gradient scan calls it: the
+                # same dkeys, dq and dw, and B S H elements fewer written
+                check_bwd_without_dv(sm, label, sets[0])
+                record(sm, results, None, f"B={B} S={S} A={A} H={H} "
+                       f"without dv", dname,
+                       partial(attention.fused_additive_attention_bwd,
+                               with_dv=False),
+                       partial(attention.additive_attention_bwd_plain,
+                               with_dv=False), sets,
+                       bytes_ - B * S * H * sz, ops, err)
                 # row 3, the forward, at the train step's shape
                 fsets = [a[:5] for a in sets]
                 err = check_fwd(sm, f"fused_additive_attention {dname} "
@@ -849,14 +879,8 @@ def train_kernel_phase(sm: Smoke, results: dict) -> None:
         # end). The training path feeds float32 logits.
         V = 8704
         for N in (TRAIN_BATCH * STEPS, 2 * TRAIN_BATCH * STEPS):
-            def mk_xent():
-                x = randn(N, V, scale=2.0, dtype=dt)
-                tgt = torch.randint(0, V, (N,), generator=gen,
-                                    device=sm.dev, dtype=torch.int32)
-                m = (torch.rand((N,), generator=gen, device=sm.dev)
-                     < 0.6).float()
-                return x, tgt, m
-            sets = [mk_xent() for _ in range(n_sets(N * V * sz))]
+            sets = [xent_inputs(torch, gen, sm.dev, N, V, dt)
+                    for _ in range(n_sets(N * V * sz))]
             # rows the kernels read: the live rows of an average set
             n_live = sum(int((a[2] != 0).sum()) for a in sets) / len(sets)
             fwd_bytes = n_live * V * sz + N * 12
@@ -864,11 +888,7 @@ def train_kernel_phase(sm: Smoke, results: dict) -> None:
             g = torch.tensor([0.37], device=sm.dev)
             bsets = [(*a, g) for a in sets]
             label = f"fused_masked_xent {dname} N={N} V={V}"
-            poison(torch, sm.dev)
-            got = xent.fused_masked_xent_rows(*sets[0])
-            want = xent.masked_xent_rows_plain(*sets[0])
-            err_f = sm.compare(label, (got,), (want,), dname, ("nll",),
-                               {"nll": (1e-4, 1e-5)})
+            err_f = check_xent(sm, label, *sets[0])
             poison(torch, sm.dev)
             got = xent.fused_masked_xent_bwd(*bsets[0])
             want = xent.masked_xent_bwd_plain(*bsets[0])
@@ -915,6 +935,58 @@ def train_kernel_phase(sm: Smoke, results: dict) -> None:
                    bsets, bwd_bytes, n_live * V * 6, err_b,
                    library=lib_bwd)
             graphs.clear()
+        # row 5's ragged cases: a row alone, 13 rows, the train step's 1344;
+        # widths from 128 to 8704 and beyond one batch of loads a thread
+        # (20480); targets outside [0, V) in two rows; all rows masked
+        for N in XENT_ROWS:
+            for V_ in XENT_WIDTHS:
+                x, tgt, m = xent_inputs(torch, gen, sm.dev, N, V_, dt)
+                tgt[N // 2] = -1
+                tgt[N - 1] = V_
+                check_xent(sm, f"fused_masked_xent {dname} N={N} V={V_} "
+                               f"targets -1 and {V_}", x, tgt, m)
+        check_xent(sm, f"fused_masked_xent {dname} N={TRAIN_BATCH * STEPS} "
+                       f"V=8704 all rows masked",
+                   *xent_inputs(torch, gen, sm.dev, TRAIN_BATCH * STEPS,
+                                8704, dt, live=0.0))
+
+
+XENT_ROWS = (1, 13, TRAIN_BATCH * STEPS)
+XENT_WIDTHS = (128, 1024, 8704, 20480)
+
+
+def check_xent(sm, label, x, tgt, m) -> float:
+    """The masked cross entropy's forward against its plain version with
+    the allocator poisoned first: nll within (1e-4, 1e-5), masked rows
+    exactly 0, and bit-equal across two launches. Returns the max abs
+    error."""
+    torch = sm.torch
+    from cvc_tpu_torch.ops.kernels import xent
+    poison(torch, sm.dev)
+    got = xent.fused_masked_xent_rows(x, tgt, m)
+    want = xent.masked_xent_rows_plain(x, tgt, m)
+    err = sm.compare(label, (got,), (want,), "float32", ("nll",),
+                     {"nll": (1e-4, 1e-5)})
+    sm.check(bool((got[m == 0] == 0).all()),
+             f"{label}: {int((m == 0).sum())} masked rows give nll 0")
+    again = xent.fused_masked_xent_rows(x, tgt, m)
+    sm.check(bool(torch.equal(got, again)),
+             f"{label}: nll bit-equal across two launches")
+    return err
+
+
+def check_bwd_without_dv(sm, label, args) -> None:
+    """The attention backward without dv against the same launch with it:
+    dkeys, dq and dw bit-equal, dv None."""
+    torch = sm.torch
+    from cvc_tpu_torch.ops.kernels import attention
+    poison(torch, sm.dev)
+    got = attention.fused_additive_attention_bwd(*args, with_dv=False)
+    want = attention.fused_additive_attention_bwd(*args)
+    sm.check(got[3] is None and all(bool(torch.equal(a, b))
+                                    for a, b in zip(got[:3], want[:3])),
+             f"{label} without dv: dkeys, dq, dw bit-equal to the launch "
+             f"with dv; dv None")
 
 
 def bf16_head_phase(sm: Smoke) -> None:
@@ -1196,6 +1268,31 @@ def serving_phase(sm: Smoke, smi: str, counts: dict) -> None:
                 vocab, beam_size=1, batch_size=BATCH, device=DEVICE),
                 reqs, "greedy")
 
+    # beam 10, above the kernels' 8 beams, in float32: auto (use_pallas and
+    # pallas_select None) decodes on the plain path, launching no kernel,
+    # with the tokens of the explicitly plain path; an explicit True is
+    # refused when the Captioner is built, naming the rule
+    cfg = dataclasses.replace(base, dtype="float32")
+    cap = Captioner.build(params, cfg, vocab, beam_size=10,
+                          batch_size=BATCH, device=DEVICE)
+    drive(cap, "beam-10 float32 (auto)", {})
+    compare_paths(sm, cap, Captioner.build(
+        params, dataclasses.replace(cfg, use_pallas=False,
+                                    pallas_select=False),
+        vocab, beam_size=10, batch_size=BATCH, device=DEVICE),
+        reqs, "beam-10", path="auto")
+    for knob in ("use_pallas", "pallas_select"):
+        try:
+            Captioner.build(params, dataclasses.replace(cfg, **{knob: True}),
+                            vocab, beam_size=10, batch_size=BATCH,
+                            device=DEVICE)
+        except ValueError as e:
+            sm.check("10" in str(e), f"beam-10 with {knob}=True: refused at "
+                                     f"build time ({e})")
+        else:
+            sm.check(False, f"beam-10 with {knob}=True: built, should raise "
+                            f"ValueError")
+
 
 def throughput(sm: Smoke, cap, reqs, smi: str, label: str,
                profile: bool = True) -> dict:
@@ -1247,7 +1344,10 @@ def throughput(sm: Smoke, cap, reqs, smi: str, label: str,
 def profile_report(sm: Smoke, fn, label: str, top_n: int = 8) -> None:
     """Runs fn once under torch.profiler and prints the card's busy time
     (the union of kernel intervals) against the wall time, the number of
-    kernel launches and the top kernels by device time."""
+    kernel launches, PyTorch's float and bf16 elementwise adds (the
+    kernels whose name holds `add<float>` or `add<c10::BFloat16>`: the
+    autograd sums of per-step gradients among them) and the top kernels
+    by device time."""
     torch = sm.torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1279,12 +1379,18 @@ def profile_report(sm: Smoke, fn, label: str, top_n: int = 8) -> None:
     print(f"profile: {label}: {wall_us:.0f} us wall under the profiler, "
           f"kernels busy {busy:.0f} us ({busy / wall_us:.3f} of wall), "
           f"{len(kernels)} kernel launches", flush=True)
+    for what, key in (("float", "add<float>"), ("bf16", "add<c10::BFloat16>")):
+        adds = [e for e in kernels if key in e.name]
+        print(f"profile:   {what} adds: {len(adds)} launches, "
+              f"{sum(e.time_range.elapsed_us() for e in adds):.1f} us",
+              flush=True)
     for name, (t, n) in top:
         print(f"profile:   {t:9.1f} us  {n:4d} x  {name[:90]}", flush=True)
 
 
-def compare_paths(sm: Smoke, cap_k, cap_p, reqs, label):
-    """Kernel path against plain path on the card, float32, token level."""
+def compare_paths(sm: Smoke, cap_k, cap_p, reqs, label, path="kernel"):
+    """`path` (the kernel path, or auto dispatch) against the plain path on
+    the card, float32, token level."""
     torch = sm.torch
     match = total = 0
     score_err = alpha_err = 0.0
@@ -1307,7 +1413,7 @@ def compare_paths(sm: Smoke, cap_k, cap_p, reqs, label):
             alpha_err = max(alpha_err, float(a.max()))
     share = match / total
     sm.check(share >= 0.98 and score_err <= 1e-3 and alpha_err <= 1e-3,
-             f"{label} float32 kernel path vs plain path on the card: "
+             f"{label} float32 {path} path vs plain path on the card: "
              f"{share:.4f} of tokens match; where a caption matches, "
              f"score max_abs_err {score_err:.3e}, alpha max_abs_err "
              f"{alpha_err:.3e} (want >= 0.98, <= 1e-3, <= 1e-3)")
@@ -1322,7 +1428,11 @@ def compare_paths(sm: Smoke, cap_k, cap_p, reqs, label):
 # decode scan only (the reconstruct scan takes v̂ as its context), and one
 # cross entropy each for the decode and reconstruct losses; each backward
 # kernel runs once per forward launch. The merged GT-query scan runs one
-# scan over 2B rows.
+# scan over 2B rows. The stacked-gradient scan (the default) and the
+# per-step scan (stacked_grad=False) launch the same kernels as often: the
+# stacked forward is the per-step one, and its reverse loop calls each
+# backward kernel once for each forward launch. Under remat each step's
+# forward runs again in the backward: every forward kernel twice.
 ARGMAX_LAUNCHES = {"fused_lstm_gates": 4 * STEPS,
                    "fused_lstm_gates_bwd": 4 * STEPS,
                    "fused_additive_attention": STEPS,
@@ -1330,6 +1440,8 @@ ARGMAX_LAUNCHES = {"fused_lstm_gates": 4 * STEPS,
                    "fused_masked_xent": 2, "fused_masked_xent_bwd": 2}
 GT_LAUNCHES = dict(ARGMAX_LAUNCHES, fused_lstm_gates=2 * STEPS,
                    fused_lstm_gates_bwd=2 * STEPS)
+REMAT_LAUNCHES = dict(ARGMAX_LAUNCHES, fused_lstm_gates=8 * STEPS,
+                      fused_additive_attention=2 * STEPS)
 STEPS_PER_EPOCH = 29000 // TRAIN_BATCH      # Flickr30k's training images
 
 
@@ -1424,42 +1536,120 @@ def train_phase(sm: Smoke, smi: str, counts: dict) -> None:
 
     for dname in ("float32", "bfloat16"):
         cfg = dataclasses.replace(base, dtype=dname)
-        losses = run(cfg, f"train {dname} kernel path", TRAIN_STEPS,
-                     ARGMAX_LAUNCHES)
+        losses = run(cfg, f"train {dname} kernel path (stacked scan)",
+                     TRAIN_STEPS, ARGMAX_LAUNCHES)
         sm.check(losses[-1] < losses[0],
-                 f"train {dname} kernel path: loss falls over "
+                 f"train {dname} kernel path (stacked scan): loss falls over "
                  f"{TRAIN_STEPS} steps ({losses[0]:.4f} -> {losses[-1]:.4f})")
     run(dataclasses.replace(base, cycle_localize_gt=True),
         "train float32 merged GT-query scan (2B rows)", 1, GT_LAUNCHES)
+    run(dataclasses.replace(base, stacked_grad=False),
+        "train float32 kernel path, per-step scan", 1, ARGMAX_LAUNCHES)
+    run(dataclasses.replace(base, remat=True),
+        "train float32 kernel path, remat", 1, REMAT_LAUNCHES)
     run(dataclasses.replace(base, use_pallas=False),
         "train float32 plain path", 1, {})
 
     compare_train_paths(sm, base, tc, params0, arrays, new_state)
+    compare_scans(sm, base, params0, arrays)
 
-    # ms a step: host clock around synchronized steps, after one warm step;
-    # the step is bound by the host's launches, so its time spreads widely
+    # ms a step: host clock around synchronized steps, after one warm step
+    # each. The step is bound by the host's launches, so its time spreads
+    # widely: the paths take turns, half their steps in the order of
+    # TIMED_PATHS and half in the reverse order. Then one profiled step of
+    # each kernel path.
     for dname in ("float32", "bfloat16"):
-        for path, kernels in (("kernel", True), ("plain", False)):
-            cfg = dataclasses.replace(base, dtype=dname, use_pallas=kernels)
+        runs = {}
+        for path, kw in TIMED_PATHS.items():
+            cfg = dataclasses.replace(base, dtype=dname, **kw)
             state = new_state()
             step = make_train_step(cfg, tc, STEPS_PER_EPOCH, device=DEVICE)
             gen = torch.Generator(device=sm.dev).manual_seed(4)
             step(state, arrays, gen)
-            times = []
-            for _ in range(TRAIN_TIMED):
+            runs[path] = (partial(step, state, arrays, gen), [])
+        for path in (*TIMED_PATHS, *reversed(TIMED_PATHS)):
+            step, times = runs[path]
+            for _ in range(TRAIN_TIMED // 2):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                step(state, arrays, gen)
+                step()
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t0) * 1e3)
-            print(f"train step {dname} {path} path B={TRAIN_BATCH}: "
+        for path, (step, times) in runs.items():
+            print(f"train step {dname} {path} B={TRAIN_BATCH}: "
                   f"{statistics.median(times):.2f} ms a step (median of "
-                  f"{len(times)}; mean {statistics.mean(times):.2f}, range "
-                  f"{min(times):.2f}-{max(times):.2f}) on {smi}", flush=True)
-            if dname == "float32" and kernels:
-                profile_report(sm, lambda: step(state, arrays, gen),
-                               f"one float32 kernel-path train step of "
-                               f"{TRAIN_BATCH}", top_n=10)
+                  f"{len(times)}, the paths in turns; mean "
+                  f"{statistics.mean(times):.2f}, range {min(times):.2f}-"
+                  f"{max(times):.2f}) on {smi}", flush=True)
+        for path, kw in TIMED_PATHS.items():
+            if kw.get("use_pallas") is None:
+                profile_report(sm, runs[path][0],
+                               f"one {dname} train step of {TRAIN_BATCH}, "
+                               f"{path}", top_n=10)
+
+
+# the timed train steps: the kernel path with the stacked-gradient scan
+# (the default), with the per-step scan, and the plain path
+TIMED_PATHS = {"kernel path, stacked scan": {},
+               "kernel path, per-step scan": {"stacked_grad": False},
+               "plain path": {"use_pallas": False}}
+
+
+def compare_scans(sm: Smoke, base, params0, arrays) -> None:
+    """float32, dropout off, the kernel path: the stacked-gradient scan's
+    loss and every parameter's gradient against the per-step scan's
+    (stacked_grad=False), in the argmax cycle and the merged GT-query scan,
+    and the remat step's (the per-step scan, each step checkpointed)
+    against the stacked one's. Loss within 1e-5 relative, gradients at
+    `grad_tol`, which a copy 5% off in its typical elements must fail."""
+    import dataclasses
+
+    cfg = dataclasses.replace(base, drop_prob_lm=0.0, use_pallas=True)
+    gt = dataclasses.replace(cfg, cycle_localize_gt=True)
+    cases = (("argmax cycle", cfg, dict(stacked_grad=False), "per-step scan"),
+             ("merged GT-query scan", gt, dict(stacked_grad=False),
+              "per-step scan"),
+             ("argmax cycle", cfg, dict(remat=True), "remat step"))
+    for what, c, kw, other in cases:
+        loss_s, g_s = loss_and_grads(c, params0, arrays)
+        loss_o, g_o = loss_and_grads(dataclasses.replace(c, **kw), params0,
+                                     arrays)
+        label = f"train float32 {what}: stacked scan vs {other}"
+        rel = abs(loss_s - loss_o) / abs(loss_o)
+        sm.check(rel <= 1e-5, f"{label}: loss {loss_s:.6f} vs {loss_o:.6f}, "
+                              f"rel err {rel:.2e} (want <= 1e-5)")
+        bad, worst = [], 0.0
+        for k, want in g_o.items():
+            got = g_s[k]
+            if got is None or want is None:
+                if (got is None) != (want is None):
+                    bad.append(f"{k}: missing")
+                continue
+            atol, rtol = grad_tol("float32", want)
+            if not sm.within(got, want, atol, rtol):
+                bad.append(k)
+            worst = max(worst, float(((got - want).abs()
+                                      / (atol + rtol * want.abs())).max()))
+            if typical(want) > 0 and sm.within(perturb_typical(want), want,
+                                               atol, rtol):
+                bad.append(f"{k}: a copy 5% off passes")
+        sm.check(not bad, f"{label}: {len(g_o)} gradients at grad_tol, worst "
+                          f"error {worst:.3f} of its tolerance, each 5%-off "
+                          f"copy rejected{'; ' + ', '.join(bad) if bad else ''}")
+
+
+def loss_and_grads(cfg, params0, arrays):
+    """The cyclical loss (a float) and every parameter's gradient."""
+    import copy
+
+    from cvc_tpu_torch.models.cyclical import cyclical_loss
+    from cvc_tpu_torch.training.train_state import tree_items
+    params = copy.deepcopy(params0)
+    for _, x in tree_items(params):
+        x.requires_grad_(True)
+    loss, _ = cyclical_loss(params, cfg, arrays)
+    loss.backward()
+    return float(loss.detach()), {k: x.grad for k, x in tree_items(params)}
 
 
 def compare_train_paths(sm: Smoke, base, tc, params0, arrays, new_state):
@@ -1467,10 +1657,8 @@ def compare_train_paths(sm: Smoke, base, tc, params0, arrays, new_state):
     gradient and the parameters after one Adam step against the plain
     path's, same parameters and batch."""
     torch = sm.torch
-    import copy
     import dataclasses
 
-    from cvc_tpu_torch.models.cyclical import cyclical_loss
     from cvc_tpu_torch.training.step import make_train_step
     from cvc_tpu_torch.training.train_state import tree_items
 
@@ -1480,13 +1668,7 @@ def compare_train_paths(sm: Smoke, base, tc, params0, arrays, new_state):
                                          use_pallas=False)}
     losses, grads = {}, {}
     for name, cfg in cfgs.items():
-        params = copy.deepcopy(params0)
-        for _, x in tree_items(params):
-            x.requires_grad_(True)
-        loss, _ = cyclical_loss(params, cfg, arrays)
-        loss.backward()
-        losses[name] = float(loss.detach())
-        grads[name] = {k: x.grad for k, x in tree_items(params)}
+        losses[name], grads[name] = loss_and_grads(cfg, params0, arrays)
     rel = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
     sm.check(rel <= 1e-5, f"train float32 kernel vs plain path on the card: "
                           f"loss {losses['kernel']:.6f} vs "

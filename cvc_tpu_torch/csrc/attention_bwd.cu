@@ -52,6 +52,11 @@
 // interleaved chains a column, added in order): two launches give
 // bit-equal dw.
 //
+// dv may be null: the kernel then writes no dv, for a caller that forms v's
+// gradient otherwise (the stacked-gradient scan sums alpha * g_ctx over its
+// steps in one product after its loop). The value pass still reads the value
+// rows for d_alpha; only the stores of dv rows and of dv's padding rows go.
+//
 // Widths: A and H multiples of 16 bytes of elements, A at most 512 16-byte
 // vectors (one column group a thread), 16-byte aligned tensors.
 #include <cooperative_groups.h>
@@ -162,7 +167,7 @@ additive_attention_bwd_kernel(const T* __restrict__ keys, const T* __restrict__ 
   const long long bS = static_cast<long long>(b) * S;
   const T* v_b = v + bS * H;
   T* dkeys_b = dkeys + bS * A;
-  T* dv_b = dv + bS * H;
+  T* dv_b = dv != nullptr ? dv + bS * H : nullptr;
   stamp(stamps, 0);
   cluster_arrive_relaxed();   // waited for before the first remote write
 
@@ -209,7 +214,6 @@ additive_attention_bwd_kernel(const T* __restrict__ keys, const T* __restrict__ 
     const int s = live[i];
     const float a_t = rnd<T>(al_s[s]);
     const T* row = v_b + static_cast<long long>(s) * H;
-    T* drow = dv_b + static_cast<long long>(s) * H;
     float acc = 0.f;
     for (int h1 = lane * VEC; h1 < H; h1 += kRowLoads * 32 * VEC) {
       alignas(16) T vv[kRowLoads][VEC];
@@ -242,18 +246,19 @@ additive_attention_bwd_kernel(const T* __restrict__ keys, const T* __restrict__ 
             out[j] = a_t * g;
           }
         }
-        store_vec<T>(drow + h0, out);
+        if (dv_b != nullptr) store_vec<T>(dv_b + static_cast<long long>(s) * H + h0, out);
       }
     }
     acc = warp_sum(acc);
     if (lane == 0) ds_s[s] = acc + (g_alpha != nullptr ? g_alpha[bS + s] : 0.f);
   }
-  // this block's padding rows (every other entry of the list): zero dv, dkeys
+  // this block's padding rows (every other entry of the list): zero dv (where
+  // asked for) and dkeys
   {
     alignas(16) T zero[VEC];
 #pragma unroll
     for (int j = 0; j < VEC; ++j) zero[j] = from_f<T>(0.f);
-    const int hv = H / VEC, av = A / VEC;
+    const int hv = dv_b != nullptr ? H / VEC : 0, av = A / VEC;
     const int mine = (nd - rank + 1) / 2;   // entries rank, rank + 2, ...
     for (long long t = threadIdx.x; t < static_cast<long long>(mine) * (hv + av);
          t += blockDim.x) {
@@ -431,6 +436,7 @@ int launch(const void* keys, const void* q, const void* w, const void* v, const 
 }  // namespace
 
 // g_alpha may be null: alpha then enters no loss and its gradient is zero.
+// dv may be null: no dv is written.
 // stamps: null, or int64 [2B, kStampSlots] for the phase clock stamps.
 extern "C" int cvc_additive_attention_bwd(const void* keys, const void* q, const void* w,
                                           const void* v, const void* mask, const void* alpha,

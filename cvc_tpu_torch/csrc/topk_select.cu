@@ -21,7 +21,8 @@
 //   `launch_shape` in ops/kernels/topk_select.py; a share too long for
 //   that is walked in batches of kTopkVecs vectors a thread).
 // - A thread asks for all the vectors of a batch before any math, so a row
-//   costs one round trip to memory. Then two passes over its registers:
+//   costs one round trip to memory (RowBatch in vocab_row.cuh, which the
+//   cross entropy's forward shares). Then two passes over its registers:
 //   its two best elements, and one exp an element against its maximum, with
 //   no rescale branch (on the special function unit: see exp2_approx).
 //   Columns past V are never read, which is what the TPU kernel's -3e38
@@ -66,6 +67,7 @@
 #include <cooperative_groups.h>
 
 #include "row_ring.cuh"
+#include "vocab_row.cuh"
 
 namespace {
 
@@ -77,54 +79,10 @@ constexpr int kTopkVecs = 4;           // 16-byte vectors a thread holds at once
 constexpr int kTopkMaxCluster = 8;     // blocks a row, at most (the portable cluster size)
 constexpr int kTopkMaxLists = kTopkMaxCluster * kTopkMaxThreads / 32;   // warps a row
 constexpr int kNoIndex = 0x7fffffff;   // the index of an empty entry (key 0)
-constexpr unsigned kFullWarp = 0xffffffffu;
-
-// A float as an unsigned key of the same order (a > b <=> key(a) > key(b),
-// -0 as +0), so that a warp-wide integer reduction finds a maximum. No
-// number has key 0, the empty entry's.
-__device__ __forceinline__ unsigned key_of(float x) {
-  const unsigned b = __float_as_uint(x + 0.f);
-  return b ^ (static_cast<unsigned>(static_cast<int>(b) >> 31) | 0x80000000u);
-}
-
-__device__ __forceinline__ float value_of(unsigned k) {
-  return __uint_as_float(k ^ (static_cast<unsigned>(static_cast<int>(~k) >> 31) | 0x80000000u));
-}
-
-// 2^x on the special function unit (ex2.approx.ftz.f32, relative error below
-// 2^-22). exp(x - m) as exp2_approx(fmaf(x, kLog2e, -m * kLog2e)) is two
-// instructions where expf is nine, in a kernel bound by the instructions it
-// issues; the argument's rounding adds under 2^-24 of |x - m| log2(e), which
-// only terms far below the maximum feel, so a row's logsumexp stays within
-// 1e-6 of the exact one.
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // The total order of the selection: value descending, index ascending.
 __device__ __forceinline__ bool better(unsigned ak, int ai, unsigned bk, int bi) {
   return ak > bk || (ak == bk && ai < bi);
-}
-
-// (m, s) <- the pair of the union of both sets, s = sum exp(x - m); (-inf, 0)
-// is the empty set. One expf and two selects, no branch.
-__device__ __forceinline__ void lse_merge(float& m, float& s, float om, float os) {
-  const float d = m == om ? 1.f : expf(-fabsf(m - om));
-  s = m >= om ? fmaf(os, d, s) : fmaf(s, d, os);
-  m = fmaxf(m, om);
-}
-
-// The same over a warp's 32 pairs, in every lane: the largest maximum by a
-// reduction of keys, one expf a lane, and the sums by shuffles in a fixed tree.
-__device__ __forceinline__ void warp_lse_merge(float& m, float& s) {
-  const float wm = value_of(__reduce_max_sync(kFullWarp, key_of(m)));
-  s *= expf(m - (wm > -INFINITY ? wm : 0.f));   // an empty lane's 0 stays 0
-  m = wm;
-  s = warp_sum(s);
 }
 
 // A sorted list of the K best (key, index) seen, best first. The warp's list
@@ -267,12 +225,8 @@ topk_lse_kernel(const T* __restrict__ logits, float* __restrict__ vals, int* __r
   top.clear();
   float m = -INFINITY, s = 0.f;
   for (int b0 = lo; b0 < hi; b0 += blockDim.x * kTopkVecs) {   // the same trips for all
-    const int base = b0 + threadIdx.x;
-    uint4 raw[kTopkVecs];
-#pragma unroll
-    for (int j = 0; j < kTopkVecs; ++j)
-      if (base + j * blockDim.x < hi)
-        raw[j] = __ldg(reinterpret_cast<const uint4*>(row) + base + j * blockDim.x);
+    RowBatch<kTopkVecs> rows;
+    rows.load(row, b0 + threadIdx.x, blockDim.x, hi);
     // the thread's two best in the total order: its columns come in
     // increasing order, so "greater" keeps the first of equal values. b1
     // and b2 start as NaN, which the first elements replace whatever they
@@ -282,11 +236,10 @@ topk_lse_kernel(const T* __restrict__ logits, float* __restrict__ vals, int* __r
     int e1 = -1, e2 = -1;
 #pragma unroll
     for (int j = 0; j < kTopkVecs; ++j) {
-      if (base + j * blockDim.x < hi) {
-        const T* x = reinterpret_cast<const T*>(&raw[j]);
+      if (rows.has(j)) {
 #pragma unroll
         for (int v = 0; v < VEC; ++v) {
-          const float xv = to_f(x[v]);
+          const float xv = rows.at<T>(j, v);
           const bool first = !(xv <= b1), second = !(xv <= b2);
           b2 = first ? b1 : second ? xv : b2;
           e2 = first ? e1 : second ? j * VEC + v : e2;
@@ -295,7 +248,7 @@ topk_lse_kernel(const T* __restrict__ logits, float* __restrict__ vals, int* __r
         }
       }
     }
-    auto column = [&](int e) { return (base + (e / VEC) * blockDim.x) * VEC + e % VEC; };
+    auto column = [&](int e) { return rows.column<T>(e / VEC, e % VEC); };
     TopList<K> batch;
     const int used = batch.pick(e1 < 0 ? 0u : key_of(b1), e1 < 0 ? kNoIndex : column(e1),
                                 e2 < 0 ? 0u : key_of(b2), e2 < 0 ? kNoIndex : column(e2));
@@ -306,10 +259,9 @@ topk_lse_kernel(const T* __restrict__ logits, float* __restrict__ vals, int* __r
     float bs = 0.f;
 #pragma unroll
     for (int j = 0; j < kTopkVecs; ++j) {
-      if (base + j * blockDim.x < hi) {
-        const T* x = reinterpret_cast<const T*>(&raw[j]);
+      if (rows.has(j)) {
 #pragma unroll
-        for (int v = 0; v < VEC; ++v) bs += exp2_approx(fmaf(to_f(x[v]), kLog2e, ref2));
+        for (int v = 0; v < VEC; ++v) bs += exp2_approx(fmaf(rows.at<T>(j, v), kLog2e, ref2));
       }
     }
     s = fmaf(s, expf(m - ref), bs);
@@ -324,10 +276,9 @@ topk_lse_kernel(const T* __restrict__ logits, float* __restrict__ vals, int* __r
       if (used == 2) {
 #pragma unroll
         for (int j = 0; j < kTopkVecs; ++j) {
-          if (base + j * blockDim.x < hi) {
-            const T* x = reinterpret_cast<const T*>(&raw[j]);
+          if (rows.has(j)) {
 #pragma unroll
-            for (int v = 0; v < VEC; ++v) above += to_f(x[v]) >= least ? 1 : 0;
+            for (int v = 0; v < VEC; ++v) above += rows.at<T>(j, v) >= least ? 1 : 0;
           }
         }
       }
@@ -335,8 +286,8 @@ topk_lse_kernel(const T* __restrict__ logits, float* __restrict__ vals, int* __r
 #pragma unroll 1
         for (int e = 0; e < kTopkVecs * VEC; ++e) {
           unsigned xk = 0u;
-          if (base + (e / VEC) * blockDim.x < hi && e != e1 && e != e2)
-            xk = key_of(element<T>(raw, e));
+          if (rows.has(e / VEC) && e != e1 && e != e2)
+            xk = key_of(element<T>(rows.raw, e));
           const int xi = column(e);
           batch.insert_from(__ballot_sync(kFullWarp, xk != 0u && batch.admits(xk, xi)), xk, xi);
         }

@@ -21,8 +21,10 @@ Step recurrence:
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from cvc_tpu_torch.ops import dispatch
 from cvc_tpu_torch.ops.primitives import (additive_attention_scores,
@@ -217,10 +219,25 @@ def decoder_step(params, cfg, carry, inputs, v_enc, keys, region_mask,
     The kernels run when `use_pallas_train_scan` resolves so for the
     tensors' device. Returns (carry', (h_lang', alpha [B, S])).
     """
+    w = step_weights(params, cfg, keys.dtype) if weights is None else weights
+    carry, alpha, _ = step(
+        w, carry, inputs["pre1"], inputs.get("ctx"), v_enc, keys,
+        region_mask, context_mix, use_attention,
+        dispatch.use_pallas_train_scan(cfg, keys.device))
+    return carry, (carry[2], alpha)
+
+
+def step(w, carry, pre1, ctx_in, v_enc, keys, region_mask, context_mix,
+         use_attention: bool, use_kernels: bool):
+    """The decoder step's math on `step_weights` w: the kernels (their
+    autograd Functions while a gradient is recorded, their forwards
+    directly otherwise) or the plain PyTorch path. `decoder_step` and the
+    stacked-gradient scan's forward (models/decode_vjp.py) share it, so
+    both compute the same values. Returns (carry', alpha [B, S] float32,
+    (gates1, gates2, ctx)): the two LSTM cells' gate preactivations and
+    the context that entered the second."""
     h_att, c_att, h_lang, c_lang = carry
     dtype = keys.dtype
-    w = step_weights(params, cfg, dtype) if weights is None else weights
-    use_kernels = dispatch.use_pallas_train_scan(cfg, keys.device)
     if use_kernels:
         from cvc_tpu_torch.ops.kernels import (fused_additive_attention,
                                                fused_lstm_gates)
@@ -228,7 +245,7 @@ def decoder_step(params, cfg, carry, inputs, v_enc, keys, region_mask,
     else:
         cell = lstm_cell
 
-    gates1 = inputs["pre1"] + h_lang @ w["w_hl"] + h_att @ w["w_ah"]
+    gates1 = pre1 + h_lang @ w["w_hl"] + h_att @ w["w_ah"]
     h_att, c_att = cell(gates1, c_att)
 
     if use_attention:
@@ -242,16 +259,16 @@ def decoder_step(params, cfg, carry, inputs, v_enc, keys, region_mask,
             ctx = torch.einsum("bs,bsh->bh", alpha.to(dtype), v_enc)
         if context_mix is not None:
             mix = context_mix.to(ctx.dtype)
-            ctx = mix * inputs["ctx"] + (1.0 - mix) * ctx
+            ctx = mix * ctx_in + (1.0 - mix) * ctx
     else:
-        ctx = inputs["ctx"]
+        ctx = ctx_in
         alpha = torch.zeros(region_mask.shape, dtype=torch.float32,
                             device=keys.device)
 
     gates2 = (ctx @ w["w_cx"] + h_att @ w["w_ax"] + h_lang @ w["w_lh"]
               + w["b_l"])
     h_lang, c_lang = cell(gates2, c_lang)
-    return (h_att, c_att, h_lang, c_lang), (h_lang, alpha)
+    return (h_att, c_att, h_lang, c_lang), alpha, (gates1, gates2, ctx)
 
 
 def precompute_pre1(params, cfg, emb_seq, v_global):
@@ -276,26 +293,53 @@ def decode(params, cfg, v_enc, keys, v_global, emb_seq, region_mask,
         reconstruct scan: rows with mix 0 attend, rows with mix 1 take v̂.
     The kernels run when `use_pallas_train_scan` resolves so for the
     tensors' device. The decoder's weights are cast and split once, before
-    the loop, and the per-step inputs taken with `unbind`: autograd then
-    sums the steps' gradients of each piece and forms each whole tensor's
-    gradient once, instead of once a step.
+    the loop.
+
+    Which scan runs, as in the JAX package's `decode`:
+    - while a gradient is recorded, with `cfg.stacked_grad` and without
+      `cfg.remat`: `decode_vjp.scan_decode_stacked`, whose hand-written
+      backward forms every weight gradient as one product over all L
+      steps (with the kernels on CUDA; see that module for the one
+      difference from the reference);
+    - otherwise one `decoder_step` a step under autograd, the per-step
+      inputs taken with `unbind` (autograd sums each piece's per-step
+      gradients and forms each whole tensor's gradient once); under
+      `cfg.remat` each step is checkpointed (`torch.utils.checkpoint`, as
+      the reference wraps it in `jax.checkpoint`): its activations are
+      recomputed in the backward instead of kept.
     Returns (h_seq [B, L, H], alphas [B, L, S] float32, final carry).
     """
     B, L, _ = emb_seq.shape
     dtype = keys.dtype
     pre1 = precompute_pre1(params, cfg, emb_seq, v_global)     # [B, L, 4H]
     use_attention = context_override is None or context_mix is not None
-    pre1_t = pre1.unbind(1)
-    ctx_t = (None if context_override is None
-             else context_override.to(dtype).unbind(1))
+    ctx_seq = None if context_override is None else context_override.to(dtype)
     weights = step_weights(params, cfg, dtype)
     carry = initial_state(B, cfg.rnn_size, dtype, keys.device)
+    grad = torch.is_grad_enabled()
+    if grad and cfg.stacked_grad and not cfg.remat:
+        from cvc_tpu_torch.models.decode_vjp import scan_decode_stacked
+        h_seq, alphas, carry = scan_decode_stacked(
+            weights, pre1.transpose(0, 1),
+            None if ctx_seq is None else ctx_seq.transpose(0, 1),
+            v_enc, keys, region_mask, context_mix, carry,
+            use_attention=use_attention,
+            use_kernels=dispatch.use_pallas_train_scan(cfg, keys.device))
+        return h_seq.transpose(0, 1), alphas.transpose(0, 1), carry
+    step_fn = decoder_step
+    if grad and cfg.remat:
+        # the step draws no random numbers: no RNG state to keep for the
+        # recompute
+        step_fn = partial(checkpoint, decoder_step, use_reentrant=False,
+                          preserve_rng_state=False)
+    pre1_t = pre1.unbind(1)
+    ctx_t = None if ctx_seq is None else ctx_seq.unbind(1)
     hs, alphas = [], []
     for t in range(L):
         inputs = {"pre1": pre1_t[t]}
         if ctx_t is not None:
             inputs["ctx"] = ctx_t[t]
-        carry, (h, alpha) = decoder_step(
+        carry, (h, alpha) = step_fn(
             params, cfg, carry, inputs, v_enc, keys, region_mask,
             context_mix=context_mix, use_attention=use_attention,
             weights=weights)

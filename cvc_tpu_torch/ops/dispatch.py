@@ -2,17 +2,33 @@
 
 `ModelConfig.use_pallas` and `ModelConfig.pallas_select` keep their names
 from the JAX package. Left as None (auto) they pick the hand-written
-kernels for tensors on a CUDA device and the plain PyTorch versions for
-tensors on the CPU. An explicit False is the A/B switch to the plain path
-on any device; an explicit True asks for the kernel wrappers everywhere,
-which still run their plain versions on CPU tensors (there is no interpret
-mode). The JAX package's 512-slot gate does not exist here: it is a TPU
-VMEM limit, and the Hopper kernels loop over the region slots instead.
+kernels for tensors on a CUDA device where the configuration and the beam
+count fit the kernels' rules, and the plain PyTorch versions otherwise
+(tensors on the CPU, or a beam count, width or type a kernel does not
+take: the reference's auto dispatch falls back where its kernels do not
+fit too). An explicit False is the A/B switch to the plain path on any
+device. An explicit True asks for the kernel wrappers everywhere, which
+run their plain versions on CPU tensors (there is no interpret mode);
+where it cannot hold on a CUDA device, `check_fit` raises when the
+decoder or the train step is made, naming the rule, instead of a wrapper
+raising in the middle of a decode.
+
+Each kernel module states its rule once, as a `fit_error` function that
+its wrapper also checks. The JAX package's 512-slot gate does not exist
+here: it is a TPU VMEM limit, and the Hopper kernels loop over the region
+slots instead.
 """
 
 from __future__ import annotations
 
 import torch
+
+from cvc_tpu_torch.config import ModelConfig
+from cvc_tpu_torch.ops.kernels import (attention, decoder_step, lstm,
+                                       topk_select, xent)
+
+_DEFAULTS = ModelConfig()
+_ELEM_SIZE = {"float32": 4, "bfloat16": 2}
 
 
 def resolve_device(device) -> torch.device:
@@ -29,32 +45,96 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def use_pallas(cfg, device: torch.device) -> bool:
-    """The attention/LSTM kernels (`ModelConfig.use_pallas`)."""
-    up = getattr(cfg, "use_pallas", None)
-    if up is None:
-        return torch.device(device).type == "cuda"
-    return bool(up)
+def _field(cfg, name):
+    """cfg's field, or ModelConfig's default where cfg has none."""
+    return getattr(cfg, name, getattr(_DEFAULTS, name))
 
 
-def use_pallas_select(cfg, device: torch.device) -> bool:
-    """The top-k + logsumexp select kernel (`ModelConfig.pallas_select`),
-    a knob of its own so the two can be A/B'd separately."""
-    ps = getattr(cfg, "pallas_select", None)
-    if ps is None:
-        return torch.device(device).type == "cuda"
-    return bool(ps)
+def step_misfit(cfg, beam_size: int | None = None) -> str | None:
+    """The first kernel rule that cfg's widths and type break, or None: for
+    a beam search of `beam_size` beams the beam decoder core's, else the
+    LSTM gates' and the attention forward's and backward's (the decoder
+    step of the greedy decode and of the teacher-forced scans)."""
+    H, A = _field(cfg, "rnn_size"), _field(cfg, "att_hid_size")
+    es = _ELEM_SIZE.get(_field(cfg, "dtype"), 0)
+    if not es:
+        return f"dtype {_field(cfg, 'dtype')} is not float32 or bfloat16"
+    if beam_size is not None:
+        return decoder_step.fit_error(beam_size, A, H, es)
+    return (lstm.fit_error(H, es) or attention.forward_fit_error(A, H, es)
+            or attention.backward_fit_error(A, H, es))
+
+
+def train_scan_misfit(cfg) -> str | None:
+    """`step_misfit` and the masked cross entropy's rule (float32 logits)."""
+    return (step_misfit(cfg)
+            or xent.fit_error(_field(cfg, "vocab_size"), 4))
+
+
+def select_misfit(cfg, k: int) -> str | None:
+    """The top-k + logsumexp kernel's rule for the k best of the vocabulary
+    head's logits: float32, or bf16 in a beam search of a bf16 model under
+    `beam_select_bf16`."""
+    bf16 = (k > 1 and _field(cfg, "beam_select_bf16")
+            and _field(cfg, "dtype") == "bfloat16")
+    return topk_select.fit_error(k, _field(cfg, "vocab_size"), 2 if bf16 else 4)
+
+
+def _resolve(flag, device, misfit) -> bool:
+    if flag is None:
+        return torch.device(device).type == "cuda" and misfit() is None
+    return bool(flag)
+
+
+def use_pallas(cfg, device: torch.device, beam_size: int | None = None) -> bool:
+    """The decoder step's kernels (`ModelConfig.use_pallas`): for a beam
+    search of `beam_size` beams the beam decoder core, else the LSTM gates
+    and the attention kernels (`step_misfit`)."""
+    return _resolve(getattr(cfg, "use_pallas", None), device,
+                    lambda: step_misfit(cfg, beam_size))
+
+
+def use_pallas_select(cfg, device: torch.device, k: int = 1) -> bool:
+    """The top-k + logsumexp select kernel for the k best
+    (`ModelConfig.pallas_select`), a knob of its own so the two can be
+    A/B'd separately."""
+    return _resolve(getattr(cfg, "pallas_select", None), device,
+                    lambda: select_misfit(cfg, k))
 
 
 def use_pallas_train_scan(cfg, device: torch.device) -> bool:
     """The kernels of the teacher-forced decode and reconstruct scans and
     of their losses (training and the evaluation loss): the attention/LSTM
     kernels with their backward kernels, and the masked cross entropy.
-    `ModelConfig.use_pallas` left as None picks them for CUDA tensors and
-    the plain path for CPU tensors, as `use_pallas` does. The JAX package
+    `ModelConfig.use_pallas` left as None picks them for CUDA tensors
+    where cfg fits their rules, as `use_pallas` does. The JAX package
     resolves auto to False even on a TPU, because there the kernel
     boundaries inside `jax.grad` block XLA's fusion across scan steps;
     PyTorch runs eagerly and fuses nothing across steps, so that reason
     does not hold here. An explicit False is the A/B switch to the plain
     path."""
-    return use_pallas(cfg, device)
+    return _resolve(getattr(cfg, "use_pallas", None), device,
+                    lambda: train_scan_misfit(cfg))
+
+
+def check_fit(cfg, device, beam_size: int | None = None,
+              train: bool = False) -> None:
+    """Raise ValueError where cfg asks for the kernels explicitly
+    (`use_pallas` or `pallas_select` True) on a CUDA device and a kernel's
+    rule does not hold for cfg: for the train step (`train`), or for a
+    decode of `beam_size` beams (None: greedy). Auto (None) falls back to
+    the plain path instead, and on the CPU every kernel's plain version
+    takes any shape."""
+    if torch.device(device).type != "cuda":
+        return
+    checks = []
+    if getattr(cfg, "use_pallas", None):
+        checks.append(("use_pallas", train_scan_misfit(cfg) if train
+                       else step_misfit(cfg, beam_size)))
+    if not train and getattr(cfg, "pallas_select", None):
+        checks.append(("pallas_select", select_misfit(cfg, beam_size or 1)))
+    for knob, error in checks:
+        if error is not None:
+            raise ValueError(f"{knob}=True, but the kernels do not fit: "
+                             f"{error} (leave {knob} as None to fall back "
+                             f"to the plain path)")

@@ -40,13 +40,16 @@ def additive_attention_plain(keys, q, w, v, mask):
     return ctx, alpha
 
 
-def additive_attention_bwd_plain(keys, q, w, v, mask, alpha, g_ctx, g_alpha):
+def additive_attention_bwd_plain(keys, q, w, v, mask, alpha, g_ctx, g_alpha,
+                                 with_dv=True):
     """The backward kernel's math in plain PyTorch (the Pallas
     `_bwd_kernel`): -> (dkeys [B,S,A], dq [B,A], dw [A], dv [B,S,H]) in
-    the types of keys, q, w and v. g_alpha may be None (zero). Slots with
-    mask 0 have alpha 0, so their rows of dkeys and dv are zero."""
+    the types of keys, q, w and v; dv is None without `with_dv`. g_alpha
+    may be None (zero). Slots with mask 0 have alpha 0, so their rows of
+    dkeys and dv are zero."""
     g_ctx = g_ctx.to(v.dtype)
-    dv = alpha.to(v.dtype)[..., None] * g_ctx[:, None, :]
+    dv = (alpha.to(v.dtype)[..., None] * g_ctx[:, None, :] if with_dv
+          else None)
     d_alpha = upcast(v * g_ctx[:, None, :]).sum(-1)
     if g_alpha is not None:
         d_alpha = d_alpha + upcast(g_alpha)
@@ -59,9 +62,31 @@ def additive_attention_bwd_plain(keys, q, w, v, mask, alpha, g_ctx, g_alpha):
     return de, dq, dw, dv
 
 
-def _check(name, keys, q, w, v, mask, extra_f32=None, extra_t=None):
+def forward_fit_error(A: int, H: int, elem_size: int) -> str | None:
+    """The forward kernel's rule: None where widths A and H of `elem_size`
+    bytes fit it, else the rule that breaks: A a multiple of 16 bytes, H
+    of 32 bytes (each block of an image's pair takes half of H, a 16-byte
+    vector a thread) and at most 1024 16-byte vectors. (It also wants
+    16-byte aligned keys and v.)"""
+    vec = build.vector_elems(elem_size)
+    return build.width_error(
+        {"A": (A, vec), "H": (H, 2 * vec)},
+        {"H": (H, MAX_FWD_H_VECTORS * vec, MAX_FWD_H_VECTORS)})
+
+
+def backward_fit_error(A: int, H: int, elem_size: int) -> str | None:
+    """The backward kernel's rule: A and H multiples of 16 bytes, A at
+    most 512 16-byte vectors (one column group a thread)."""
+    vec = build.vector_elems(elem_size)
+    return build.width_error(
+        {"A": (A, vec), "H": (H, vec)},
+        {"A": (A, MAX_BWD_A_VECTORS * vec, MAX_BWD_A_VECTORS)})
+
+
+def _check(name, keys, q, w, v, mask, fit, extra_f32=None, extra_t=None):
     """Shapes, devices and types of the forward's inputs (and of the
-    backward's float32 and working-type extras); returns the device."""
+    backward's float32 and working-type extras), alignment, and the
+    widths against the kernel's rule `fit`; returns the device."""
     dev = build.check_cuda(name, {"keys": keys, "q": q, "w": w, "v": v,
                                   **(extra_t or {})}, dtype=keys.dtype)
     build.check_cuda(name, {"mask": mask, **(extra_f32 or {})},
@@ -74,9 +99,8 @@ def _check(name, keys, q, w, v, mask, extra_f32=None, extra_t=None):
                          f"{tuple(q.shape)}, w {tuple(w.shape)}, v "
                          f"{tuple(v.shape)}, mask {tuple(mask.shape)} do not "
                          f"agree")
-    vec = build.vector_elems(keys)
-    build.check_vectors(name, {"keys": keys, "v": v},
-                        {"A": (A, vec), "H": (H, vec)})
+    build.check_fit(name, {"keys": keys, "v": v},
+                    fit(A, H, keys.element_size()))
     return dev
 
 
@@ -84,16 +108,9 @@ def _attention_fwd(keys, q, w, v, mask, stamps=None):
     if build.on_cpu(keys, q, w, v, mask):
         return additive_attention_plain(keys, q, w, v, mask)
     name = "fused_additive_attention"
-    dev = _check(name, keys, q, w, v, mask)
+    dev = _check(name, keys, q, w, v, mask, forward_fit_error)
     B, S, A = keys.shape
     H = v.shape[-1]
-    vec = build.vector_elems(keys)
-    # each block of an image's pair takes H / 2 in 16-byte vectors, one a
-    # thread
-    build.check_vectors(name, {}, {"H": (H, 2 * vec)})
-    if H > MAX_FWD_H_VECTORS * vec:
-        raise ValueError(f"{name}: H={H} is above {MAX_FWD_H_VECTORS * vec}, "
-                         f"{MAX_FWD_H_VECTORS} 16-byte vectors")
     build.check_stamps(name, stamps, B, dev)
     ctx = torch.empty((B, H), dtype=v.dtype, device=dev)
     alpha = torch.empty((B, S), dtype=torch.float32, device=dev)
@@ -105,10 +122,12 @@ def _attention_fwd(keys, q, w, v, mask, stamps=None):
 
 
 def fused_additive_attention_bwd(keys, q, w, v, mask, alpha, g_ctx,
-                                 g_alpha=None, stamps=None):
+                                 g_alpha=None, stamps=None, with_dv=True):
     """The forward's inputs, its alpha [B,S] float32, g_ctx [B,H] and
     g_alpha [B,S] float32 (None: zero) -> (dkeys [B,S,A], dq [B,A],
-    dw [A], dv [B,S,H]) in the types of keys, q, w and v.
+    dw [A], dv [B,S,H]) in the types of keys, q, w and v. Without
+    `with_dv` the kernel writes no dv (a null pointer; the stacked scan
+    forms dv_enc from alpha and g_ctx after its loop) and dv is None.
 
     CPU tensors take `additive_attention_bwd_plain`; CUDA tensors launch
     the kernel, with the forward kernel's width and alignment rules, A at
@@ -122,9 +141,10 @@ def fused_additive_attention_bwd(keys, q, w, v, mask, alpha, g_ctx,
     if g_alpha is not None:
         f32["g_alpha"] = g_alpha
     if build.on_cpu(*ins, *f32.values()):
-        return additive_attention_bwd_plain(*ins, g_alpha)
+        return additive_attention_bwd_plain(*ins, g_alpha, with_dv)
     name = "fused_additive_attention_bwd"
-    dev = _check(name, keys, q, w, v, mask, f32, {"g_ctx": g_ctx})
+    dev = _check(name, keys, q, w, v, mask, backward_fit_error, f32,
+                 {"g_ctx": g_ctx})
     B, S, A = keys.shape
     H = v.shape[-1]
     if alpha.shape != (B, S) or g_ctx.shape != (B, H) or (
@@ -132,15 +152,11 @@ def fused_additive_attention_bwd(keys, q, w, v, mask, alpha, g_ctx,
         raise ValueError(f"{name}: alpha {tuple(alpha.shape)}, g_ctx "
                          f"{tuple(g_ctx.shape)} do not agree with B={B}, "
                          f"S={S}, H={H}")
-    vec = build.vector_elems(keys)
-    if A > MAX_BWD_A_VECTORS * vec:
-        raise ValueError(f"{name}: A={A} is above {MAX_BWD_A_VECTORS * vec}, "
-                         f"{MAX_BWD_A_VECTORS} 16-byte vectors")
     build.check_stamps(name, stamps, B, dev)
     dkeys = torch.empty_like(keys)
     dq = torch.empty_like(q)
     dw = torch.empty_like(w)
-    dv = torch.empty_like(v)
+    dv = torch.empty_like(v) if with_dv else None
     dw_part = torch.empty((B, A), dtype=torch.float32, device=dev)
     build.launch("cvc_additive_attention_bwd", keys, q, w, v, mask, alpha,
                  g_ctx, g_alpha, dkeys, dq, dw, dv, dw_part, stamps, B, S, A,

@@ -171,25 +171,37 @@ def check_cuda(name: str, tensors: dict, dtype=None, device=None) -> torch.devic
     return device
 
 
-def vector_elems(t: torch.Tensor) -> int:
-    """Elements of t's type in one 16-byte vector, the unit every kernel
-    moves rows in."""
-    return 16 // t.element_size()
+def vector_elems(elem_size: int) -> int:
+    """Elements of `elem_size` bytes in one 16-byte vector, the unit every
+    kernel moves rows in."""
+    return 16 // elem_size
 
 
-def check_vectors(name: str, tensors: dict, widths: dict) -> None:
+def width_error(widths: dict, limits: dict | None = None) -> str | None:
+    """The first width that a kernel does not take, as the rule it breaks,
+    or None: the kernels move rows in 16-byte vectors and take no other
+    layout. `widths` maps a width's name to (value, multiple in elements),
+    `limits` to (value, largest value, that limit in 16-byte vectors)."""
+    for width, (value, multiple) in widths.items():
+        if value % multiple:
+            return (f"{width}={value} is not a multiple of {multiple}, the "
+                    f"kernel's vector width")
+    for width, (value, most, vectors) in (limits or {}).items():
+        if value > most:
+            return f"{width}={value} is above {most}, {vectors} 16-byte vectors"
+    return None
+
+
+def check_fit(name: str, tensors: dict, error: str | None) -> None:
     """Raise ValueError unless every tensor starts on a 16-byte boundary
-    and every width is a multiple of what the kernel needs: the kernels
-    move rows in 16-byte vectors and take no other layout. `widths` maps a
-    width's name to (value, multiple in elements)."""
+    and `error`, the verdict of the kernel's fit rule on the call's
+    widths, is None."""
     for arg, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} does not start on a 16-byte "
                              f"boundary")
-    for width, (value, multiple) in widths.items():
-        if value % multiple:
-            raise ValueError(f"{name}: {width}={value} is not a multiple of "
-                             f"{multiple}, the kernel's vector width")
+    if error is not None:
+        raise ValueError(f"{name}: {error}")
 
 
 def check_stamps(name: str, stamps, B: int, device) -> None:

@@ -29,6 +29,19 @@ MAX_BEAMS = 8
 MAX_H_VECTORS = 1024   # H / 2 in 16-byte vectors: one column a thread
 
 
+def fit_error(K: int, A: int, H: int, elem_size: int) -> str | None:
+    """The kernel's rule: None where K beams over widths A and H of
+    `elem_size` bytes fit it, else the rule that breaks: K <= 8, A and H
+    multiples of 64 bytes (each block of an image's cluster takes half of
+    H, in whole 16-row steps of the bf16 product), H at most 1024 16-byte
+    vectors. (It also wants 16-byte aligned tensors.)"""
+    if not 1 <= K <= MAX_BEAMS:
+        return f"K={K} beams, the kernel takes 1..{MAX_BEAMS}"
+    vec = build.vector_elems(elem_size)
+    return build.width_error({"A": (A, 4 * vec), "H": (H, 4 * vec)},
+                             {"H": (H, MAX_H_VECTORS * vec, MAX_H_VECTORS)})
+
+
 def beam_core_oracle(gates1, c_att, keys, v_enc, region_mask,
                      att_wh, att_b, att_w):
     """The kernel's math in plain PyTorch, rounding where it rounds."""
@@ -84,16 +97,10 @@ def fused_beam_decoder_core(gates1, c_att, keys, v_enc, region_mask,
             or att_w.shape != (A,)):
         raise ValueError(f"{name}: shapes do not agree: "
                          + ", ".join(f"{tuple(a.shape)}" for a in args))
-    if not 1 <= K <= MAX_BEAMS:
-        raise ValueError(f"{name}: K={K} beams, the kernel takes 1..{MAX_BEAMS}")
-    vec = build.vector_elems(keys)
-    build.check_vectors(
+    build.check_fit(
         name, {"gates1": gates1, "c_att": c_att, "keys": keys,
                "v_enc": v_enc, "att_wh": att_wh},
-        {"A": (A, 4 * vec), "H": (H, 4 * vec)})
-    if H > MAX_H_VECTORS * vec:
-        raise ValueError(f"{name}: H={H} is above {MAX_H_VECTORS * vec}, "
-                         f"{MAX_H_VECTORS} 16-byte vectors")
+        fit_error(K, A, H, keys.element_size()))
     build.check_stamps(name, stamps, B, dev)
     h = torch.empty_like(c_att)
     c = torch.empty_like(c_att)

@@ -62,6 +62,13 @@ def lstm_gates_bwd_plain(gates, c, gh, gc):
     return dgates.to(gates.dtype), (dc_total * f).to(c.dtype)
 
 
+def fit_error(H: int, elem_size: int) -> str | None:
+    """The rule of both kernels' widths: None where rows of H units of
+    `elem_size` bytes fit them, else the rule that H breaks. (They also
+    want 16-byte aligned tensors, which the wrappers check.)"""
+    return build.width_error({"H": (H, build.vector_elems(elem_size))})
+
+
 def _check(name, tensors, c):
     build.check_cuda(name, tensors, dtype=c.dtype)
     if c.dim() != 2 or tensors["gates"].shape != (c.shape[0], 4 * c.shape[1]):
@@ -71,8 +78,7 @@ def _check(name, tensors, c):
         if arg != "gates" and t.shape != c.shape:
             raise ValueError(f"{name}: {arg} {tuple(t.shape)} is not "
                              f"{tuple(c.shape)}")
-    build.check_vectors(name, tensors, {"H": (c.shape[1],
-                                              build.vector_elems(c))})
+    build.check_fit(name, tensors, fit_error(c.shape[1], c.element_size()))
 
 
 def _lstm_fwd(gates, c):

@@ -59,6 +59,14 @@ def launch_shape(N: int, V: int, elem_size: int) -> tuple[int, int]:
     return cluster, 32 * min(MAX_WARPS, -(-warps // cluster))
 
 
+def fit_error(k: int, V: int, elem_size: int) -> str | None:
+    """The kernel's rule: None where the k best of rows of V logits of
+    `elem_size` bytes fit it, else the rule that k or V breaks."""
+    if not 1 <= k <= min(MAX_K, V):
+        return f"k={k}, the kernel takes 1..min({MAX_K}, V)"
+    return build.width_error({"V": (V, build.vector_elems(elem_size))})
+
+
 def topk_lse_plain(logits: torch.Tensor, k: int):
     """The kernel's math in plain PyTorch: k sweeps of (max, then the
     lowest index holding it), and a max-shifted logsumexp."""
@@ -97,10 +105,8 @@ def fused_topk_lse(logits: torch.Tensor, k: int, stamps=None, shape=None):
     if logits.dim() != 2:
         raise ValueError(f"{name}: logits {tuple(logits.shape)} is not [N, V]")
     N, V = logits.shape
-    if not 1 <= k <= min(MAX_K, V):
-        raise ValueError(f"{name}: k={k}, the kernel takes 1..min({MAX_K}, V)")
-    build.check_vectors(name, {"logits": logits},
-                        {"V": (V, build.vector_elems(logits))})
+    build.check_fit(name, {"logits": logits},
+                    fit_error(k, V, logits.element_size()))
     cluster, threads = shape or launch_shape(N, V, logits.element_size())
     if (cluster not in (1, 2, 4, 8) or threads % 32
             or not 32 <= threads <= 32 * MAX_WARPS):

@@ -56,6 +56,13 @@ def masked_xent_bwd_plain(logits, targets, mask, g):
     return ((p - onehot) * scale).to(logits.dtype)
 
 
+def fit_error(V: int, elem_size: int) -> str | None:
+    """The rule of both kernels' widths: None where rows of V logits of
+    `elem_size` bytes fit them, else the rule that V breaks (the
+    vocabulary padded to 128 fits)."""
+    return build.width_error({"V": (V, build.vector_elems(elem_size))})
+
+
 def _check(name, logits, targets, mask):
     dev = build.check_cuda(name, {"logits": logits})
     build.check_cuda(name, {"targets": targets}, dtype=torch.int32,
@@ -66,8 +73,8 @@ def _check(name, logits, targets, mask):
         raise ValueError(f"{name}: logits {tuple(logits.shape)}, targets "
                          f"{tuple(targets.shape)}, mask {tuple(mask.shape)} "
                          f"are not [N, V], [N], [N]")
-    build.check_vectors(name, {"logits": logits},
-                        {"V": (logits.shape[1], build.vector_elems(logits))})
+    build.check_fit(name, {"logits": logits},
+                    fit_error(logits.shape[1], logits.element_size()))
     return dev
 
 

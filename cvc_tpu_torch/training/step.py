@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from cvc_tpu_torch.models.cyclical import cyclical_loss
-from cvc_tpu_torch.ops.dispatch import resolve_device
+from cvc_tpu_torch.ops.dispatch import check_fit, resolve_device
 from cvc_tpu_torch.training.optimizer import make_optimizer
 
 
@@ -25,8 +25,9 @@ def make_train_step(model_cfg, train_cfg, steps_per_epoch: int,
     for the dropout draws (None: no dropout). The metrics are 0-d device
     tensors, `grad_norm` the gradients' global norm before clipping;
     nothing in the step waits for the host. Raises without a GPU unless
-    device="cpu"."""
-    resolve_device(device)
+    device="cpu", and raises ValueError where model_cfg sets `use_pallas`
+    True and the training kernels do not take its widths on `device`."""
+    check_fit(model_cfg, resolve_device(device), train=True)
     if train_cfg.scheduled_sampling_start >= 0:
         raise NotImplementedError("scheduled sampling is not ported yet")
     optimizer = make_optimizer(train_cfg, steps_per_epoch)
@@ -50,8 +51,10 @@ def make_train_step(model_cfg, train_cfg, steps_per_epoch: int,
 
 def make_eval_step(model_cfg, device="cuda"):
     """eval_step(params, arrays) -> metrics: the cyclical loss with no
-    dropout and no gradient. Raises without a GPU unless device="cpu"."""
-    resolve_device(device)
+    dropout and no gradient. Raises without a GPU unless device="cpu",
+    and raises ValueError as make_train_step does for an explicit
+    `use_pallas` True that the kernels cannot hold."""
+    check_fit(model_cfg, resolve_device(device), train=True)
 
     @torch.no_grad()
     def eval_step(params, arrays: dict) -> dict:

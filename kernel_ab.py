@@ -21,7 +21,11 @@ its own, it builds that tree's kernels and prints, in bf16 and float32:
   with a small PyTorch `add` before each call (the pair's time: on the
   main paths the kernel before a launch is PyTorch's, which matters for
   a launch that may overlap its predecessor's tail); of
-  `fused_lstm_gates_bwd` at the same three shapes; of `fused_topk_lse` at
+  `fused_lstm_gates_bwd` at the same three shapes; of the masked cross
+  entropy's forward at N 1344, V 8704 with 60%, all and no rows live and
+  with a PyTorch `add` before each call, and of its backward; of
+  `fused_additive_attention_bwd` without dv where the tree's wrapper takes
+  `with_dv`; of `fused_topk_lse` at
   V 8704, N 320 with k 5 (a beam step) and N 64 with k 1 (a greedy step),
   and at N 1, V 128 (a launch with nothing in it); and of the beam step's
   top-k after a PyTorch `add` over the logits (the bias add that precedes
@@ -41,6 +45,7 @@ Exits non-zero when no CUDA device is present or a tree fails.
 
 from __future__ import annotations
 
+import functools
 import inspect
 import json
 import subprocess
@@ -49,7 +54,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 B, A, H, LIVE = 64, 512, 1024, 100
-V, BEAM = 8704, 5
+V, BEAM, STEPS = 8704, 5, 21
 # (blocks in a row's cluster, threads in a block) of the top-k's sweep
 TOPK_SHAPES = ((1, 288), (1, 512), (2, 160), (2, 288), (2, 384), (4, 160),
                (4, 288), (8, 96), (8, 288))
@@ -68,7 +73,7 @@ def measure(tree: Path) -> None:
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     from cvc_tpu_torch.ops.kernels import (attention, build, decoder_step,
-                                           lstm, topk_select)
+                                           lstm, topk_select, xent)
     if not Path(build.__file__).resolve().is_relative_to(tree):
         raise RuntimeError(f"imported {build.__file__}, not {tree}'s package")
     build.library()
@@ -117,6 +122,22 @@ def measure(tree: Path) -> None:
             return N * (shape(N, V_, elem(dt))[0] if shape else 1)
         return ("fused_topk_lse", f"N={N} V={V_} k={k}",
                 topk_select.fused_topk_lse, sets, blocks)
+
+    def xent_case(N, live, bwd=False):
+        """The masked cross entropy's forward (or backward) over [N, V]
+        float32 or bf16 logits, about a `live` share of the rows
+        unmasked; one block a row writes stamps."""
+        g = torch.tensor([0.37], device=sm.dev)
+
+        def sets(dt):
+            made = [cs.xent_inputs(torch, gen, sm.dev, N, V, dt, live)
+                    for _ in range(cs.n_sets(N * V * elem(dt)))]
+            return [(*a, g) for a in made] if bwd else made
+        if bwd:
+            return ("fused_masked_xent_bwd", f"N={N} V={V} live={live}",
+                    xent.fused_masked_xent_bwd, sets, no_stamps)
+        return ("fused_masked_xent", f"N={N} V={V} live={live}",
+                xent.fused_masked_xent_rows, sets, lambda dt: N)
 
     def after_add(case, arg=1):
         """The case with a PyTorch `add` over its argument `arg` before each
@@ -172,9 +193,18 @@ def measure(tree: Path) -> None:
         lstm_case(64, H), lstm_case(128, H), lstm_case(1, 8),
         after_add(lstm_case(64, H)),
         *(lstm_case(R, H_, bwd=True) for R, H_ in ((64, H), (128, H), (1, 8))),
+        *(xent_case(B * STEPS, live) for live in (0.6, 1.0, 0.0)),
+        after_add(xent_case(B * STEPS, 0.6), arg=2),
+        xent_case(B * STEPS, 0.6, bwd=True),
         topk_case(B * BEAM, BEAM), topk_case(B, 1), topk_case(1, 1, 128),
         after_add(topk_case(B * BEAM, BEAM), arg=0),
         *after_product(topk_case(B * BEAM, BEAM)))
+    if "with_dv" in inspect.signature(
+            attention.fused_additive_attention_bwd).parameters:
+        name, label, _, make, _ = cases[1]      # the backward's case
+        cases += ((name, label + " without dv",
+                   functools.partial(attention.fused_additive_attention_bwd,
+                                     with_dv=False), make, no_stamps),)
     for dname, dt in (("bfloat16", torch.bfloat16),
                       ("float32", torch.float32)):
         for name, label, fn, make, stamp_blocks in cases:
