@@ -10,7 +10,7 @@
    where attention is involved, the 1280-slot video width for the beam
    decoder core, and ties plus padded-vocabulary biases for the top-k,
    which also runs ragged cases with the allocator poisoned (N 1 to 640,
-   k 1 to 8, V 128 to 8704) and ties placed where a cluster of 8, 4 or 2
+   k 1 to 16, V 128 to 8704) and ties placed where a cluster of 8, 4 or 2
    blocks splits a row, indices and values exact and all outputs bit-equal
    across two launches.
    Then the training kernels (LSTM and attention backward, masked cross
@@ -28,7 +28,9 @@
    decoder core and the attention forward and backward) also run ragged
    cases against their plain versions, in bf16 and float32, with the
    allocator poisoned: B K not a multiple of 16 (B 13 with K 5, K 1 and
-   K 3), odd and single live counts at scattered slots, a fully masked
+   K 3), beams in more than one launch of at most 8 (K 10 at the serving
+   shape, K 9 and 17), odd and single live counts at scattered slots, a
+   fully masked
    image, B 1 and S 1280; the beam core's h, c, ctx and alpha and the
    attention forward's ctx and alpha are checked bit-equal across two
    launches, and each prints a `phases` line, its per-block breakdown
@@ -52,10 +54,11 @@
    greedy decoding. Every launch counter is set to 0 before each path
    and read after it. In float32 the kernel path's tokens are compared
    with the plain path's on the card. Reports beam-5 and greedy
-   captions/s in bf16. Beam 10, above the kernels' 8 beams: auto
-   dispatch decodes on the plain path (no launch, the plain path's
-   tokens), and an explicit use_pallas or pallas_select True is refused
-   when the Captioner is built.
+   captions/s in bf16. Beam 10 in float32 through the kernels (the beam
+   core in two launches of 5 beams a step, the top-k at k 10), its tokens
+   against the plain path's; beam 17, above the top-k's 16, is refused
+   when the Captioner is built under auto dispatch, naming the rule, and
+   builds with pallas_select=False.
 4. Drives the training path at the widths of
    `configs/c3_flickr_cyclical.json` with seeded random weights and one
    seeded random batch of 64: `make_train_step` for 5 steps in float32
@@ -64,7 +67,8 @@
    the per-step scan (stacked_grad=False), remat and the plain path, the
    launch counters read after every step against the counts the code
    implies; the float32 kernel path's loss, gradients and Adam step
-   against the plain path's; the stacked scan's loss and gradients
+   against the plain path's (autograd of the per-step scan, so that the
+   reference shares no code with the stacked backward); the stacked scan's loss and gradients
    against the per-step scan's (argmax and merged GT-query) and the remat
    step's, at `grad_tol`; ms a step of the stacked and per-step kernel
    paths and the plain path in both types, with one profiled step of each
@@ -100,6 +104,7 @@ L2_BYTES = 50 * 2**20
 SEQ = 20
 STEPS = SEQ + 1                              # L = max_len + 1 decode steps
 BATCH, BEAM = 64, 5
+BEAM_WIDE = 10                               # two launches of the beam core
 N_REQUESTS, LIVE_REGIONS = 128, 100
 WINDOWS = 5                                  # timed windows of each rate
 TRAIN_BATCH, TRAIN_SLOTS = 64, 104           # configs/c3_flickr_cyclical.json
@@ -287,7 +292,8 @@ FWD_PHASES = ("live list + partner started", "scores", "the pair's scores in",
 # forward's
 RAGGED_CORE = ((13, 5, 128, 37, (4,)), (13, 1, 128, 1, ()),
                (7, 3, 128, 37, (0,)), (1, 5, 128, 37, ()),
-               (3, 5, 1280, 999, (1,)))
+               (3, 5, 1280, 999, (1,)), (13, 9, 128, 37, (4,)),
+               (3, 17, 128, 37, (1,)))
 RAGGED_BWD = ((13, 128, 37, (4,)), (5, 128, 1, ()), (1, 104, 37, ()),
               (3, 1280, 999, (1,)))
 RAGGED_FWD = ((13, 128, 37, (4,)), (5, 128, 1, ()), (1, 104, 37, ()),
@@ -487,17 +493,19 @@ def kernel_phase(sm: Smoke, results: dict) -> None:
                       attn_inputs(torch, gen, sm.dev, B_, S_, A, H, mask, dt),
                       dname, live_, phases=S_ == 1280)
 
-        # row 7: beam decoder core, B = 64, K = 5; S = 128 and 1280
-        for S, live, key in ((128, LIVE_REGIONS, "fused_beam_decoder_core"),
-                             (1280, 10 * LIVE_REGIONS, None)):
-            K = BEAM
+        # row 7: beam decoder core, B = 64, K = 5; S = 128 and 1280; and
+        # K = 10, two launches of 5 beams
+        for K, S, live, key in (
+                (BEAM, 128, LIVE_REGIONS, "fused_beam_decoder_core"),
+                (BEAM, 1280, 10 * LIVE_REGIONS, None),
+                (BEAM_WIDE, 128, LIVE_REGIONS, None)):
             mask = mask_for(B, S, live)
             sets = [core_inputs(torch, gen, sm.dev, B, K, S, A, H, mask, dt)
                     for _ in range(n_sets(core_bytes(B, K, S, A, H, mask,
                                                       sz)))]
             label = f"fused_beam_decoder_core {dname} B={B} K={K} S={S}"
             err = check_core(sm, label, sets[0], dname, live)
-            if S == 128:
+            if S == 128 and K == BEAM:
                 stamps = torch.zeros((CLUSTER_BLOCKS * B, STAMP_SLOTS),
                                      dtype=torch.int64, device=sm.dev)
                 decoder_step.fused_beam_decoder_core(*sets[0], stamps=stamps)
@@ -519,9 +527,11 @@ def kernel_phase(sm: Smoke, results: dict) -> None:
                                    dt), dname, live)
 
         # row 8: top-k + lse over V = 8704; beam N = 320, k = 5; greedy
-        # N = 64, k = 1. The serving path feeds float32 logits.
+        # N = 64, k = 1; beam 10 N = 640, k = 10. The serving path feeds
+        # float32 logits.
         V = 8704
-        for N, k in ((BATCH * BEAM, BEAM), (BATCH, 1)):
+        for N, k in ((BATCH * BEAM, BEAM), (BATCH, 1),
+                     (BATCH * BEAM_WIDE, BEAM_WIDE)):
             bytes_ = N * V * sz + N * k * 8 + N * 4
             sets = [topk_inputs(torch, gen, sm.dev, N, V, k, dt)
                     for _ in range(n_sets(bytes_))]
@@ -580,7 +590,7 @@ TOPK_PHASES = ("loads + thread math", "warp merges + hand-over",
                "rank 0: the row's lists in", "rank 0: last merge + store")
 TOPK_ROWS = (1, 13, BATCH, BATCH * BEAM, 2 * BATCH * BEAM)
 TOPK_WIDTHS = (128, 1024, 8704)
-TOPK_KS = (1, 3, 5, 8)
+TOPK_KS = (1, 3, 5, 8, 10, 16)
 
 
 def topk_tie_inputs(torch, gen, dev, V, dt):
@@ -1092,6 +1102,8 @@ def reject_phase(sm: Smoke) -> None:
                 z(40, A), z(A), z(A))),
         "fused_topk_lse V=131": lambda: topk_select.fused_topk_lse(
             z(4, 131), 2),
+        "fused_topk_lse k=17": lambda: topk_select.fused_topk_lse(
+            z(4, 128), 17),
         "fused_topk_lse misaligned logits": lambda: (
             topk_select.fused_topk_lse(off(4, 128), 2)),
         "fused_topk_lse a cluster of 3 blocks": lambda: (
@@ -1199,7 +1211,8 @@ def serving_phase(sm: Smoke, smi: str, counts: dict) -> None:
 
     import numpy as np
 
-    from cvc_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from cvc_tpu_torch.ops.kernels import (decoder_step, launch_counts,
+                                           reset_launch_counts, topk_select)
     from cvc_tpu_torch.serving import Captioner
 
     base, params, vocab, reqs = serving_setup(torch)
@@ -1268,30 +1281,36 @@ def serving_phase(sm: Smoke, smi: str, counts: dict) -> None:
                 vocab, beam_size=1, batch_size=BATCH, device=DEVICE),
                 reqs, "greedy")
 
-    # beam 10, above the kernels' 8 beams, in float32: auto (use_pallas and
-    # pallas_select None) decodes on the plain path, launching no kernel,
-    # with the tokens of the explicitly plain path; an explicit True is
-    # refused when the Captioner is built, naming the rule
+    # beam 10 in float32 through the kernels: the beam core in two
+    # launches of 5 beams a step, the top-k at k 10; tokens against the
+    # plain path's
     cfg = dataclasses.replace(base, dtype="float32")
-    cap = Captioner.build(params, cfg, vocab, beam_size=10,
+    cap = Captioner.build(params, cfg, vocab, beam_size=BEAM_WIDE,
                           batch_size=BATCH, device=DEVICE)
-    drive(cap, "beam-10 float32 (auto)", {})
+    drive(cap, f"beam-{BEAM_WIDE} float32", {
+        "fused_beam_decoder_core": decoder_step.beam_groups(BEAM_WIDE) * STEPS,
+        "fused_topk_lse": STEPS})
     compare_paths(sm, cap, Captioner.build(
         params, dataclasses.replace(cfg, use_pallas=False,
                                     pallas_select=False),
-        vocab, beam_size=10, batch_size=BATCH, device=DEVICE),
-        reqs, "beam-10", path="auto")
-    for knob in ("use_pallas", "pallas_select"):
-        try:
-            Captioner.build(params, dataclasses.replace(cfg, **{knob: True}),
-                            vocab, beam_size=10, batch_size=BATCH,
-                            device=DEVICE)
-        except ValueError as e:
-            sm.check("10" in str(e), f"beam-10 with {knob}=True: refused at "
-                                     f"build time ({e})")
-        else:
-            sm.check(False, f"beam-10 with {knob}=True: built, should raise "
-                            f"ValueError")
+        vocab, beam_size=BEAM_WIDE, batch_size=BATCH, device=DEVICE),
+        reqs, f"beam-{BEAM_WIDE}")
+    # beam 17, above the top-k's 16: auto dispatch never falls back to the
+    # plain path on the card, so the Captioner is refused when it is
+    # built, naming the rule; pallas_select=False builds
+    k_max = topk_select.MAX_K + 1
+    try:
+        Captioner.build(params, cfg, vocab, beam_size=k_max,
+                        batch_size=BATCH, device=DEVICE)
+    except ValueError as e:
+        sm.check(f"k={k_max}" in str(e), f"beam-{k_max} under auto dispatch: "
+                                         f"refused at build time ({e})")
+    else:
+        sm.check(False, f"beam-{k_max} under auto dispatch: built, should "
+                        f"raise ValueError")
+    Captioner.build(params, dataclasses.replace(cfg, pallas_select=False),
+                    vocab, beam_size=k_max, batch_size=BATCH, device=DEVICE)
+    sm.check(True, f"beam-{k_max} with pallas_select=False: built")
 
 
 def throughput(sm: Smoke, cap, reqs, smi: str, label: str,
@@ -1388,9 +1407,9 @@ def profile_report(sm: Smoke, fn, label: str, top_n: int = 8) -> None:
         print(f"profile:   {t:9.1f} us  {n:4d} x  {name[:90]}", flush=True)
 
 
-def compare_paths(sm: Smoke, cap_k, cap_p, reqs, label, path="kernel"):
-    """`path` (the kernel path, or auto dispatch) against the plain path on
-    the card, float32, token level."""
+def compare_paths(sm: Smoke, cap_k, cap_p, reqs, label):
+    """The kernel path against the plain path on the card, float32, token
+    level."""
     torch = sm.torch
     match = total = 0
     score_err = alpha_err = 0.0
@@ -1413,7 +1432,7 @@ def compare_paths(sm: Smoke, cap_k, cap_p, reqs, label, path="kernel"):
             alpha_err = max(alpha_err, float(a.max()))
     share = match / total
     sm.check(share >= 0.98 and score_err <= 1e-3 and alpha_err <= 1e-3,
-             f"{label} float32 {path} path vs plain path on the card: "
+             f"{label} float32 kernel path vs plain path on the card: "
              f"{share:.4f} of tokens match; where a caption matches, "
              f"score max_abs_err {score_err:.3e}, alpha max_abs_err "
              f"{alpha_err:.3e} (want >= 0.98, <= 1e-3, <= 1e-3)")
@@ -1655,7 +1674,9 @@ def loss_and_grads(cfg, params0, arrays):
 def compare_train_paths(sm: Smoke, base, tc, params0, arrays, new_state):
     """float32, dropout off: the kernel path's loss, every parameter's
     gradient and the parameters after one Adam step against the plain
-    path's, same parameters and batch."""
+    path's, same parameters and batch. The plain side runs the per-step
+    scan (stacked_grad=False), autograd of plain PyTorch, so that it
+    shares neither the kernels nor the stacked scan's backward."""
     torch = sm.torch
     import dataclasses
 
@@ -1665,7 +1686,8 @@ def compare_train_paths(sm: Smoke, base, tc, params0, arrays, new_state):
     cfgs = {"kernel": dataclasses.replace(base, drop_prob_lm=0.0,
                                           use_pallas=True),
             "plain": dataclasses.replace(base, drop_prob_lm=0.0,
-                                         use_pallas=False)}
+                                         use_pallas=False,
+                                         stacked_grad=False)}
     losses, grads = {}, {}
     for name, cfg in cfgs.items():
         losses[name], grads[name] = loss_and_grads(cfg, params0, arrays)

@@ -23,7 +23,7 @@ namespace cvc {
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
 constexpr int kThreads = 256;              // threads per block in every kernel
-constexpr int kMaxBeams = 8;               // largest K the beam kernels accept
+constexpr int kMaxBeams = 8;               // beams in one launch of the beam core
 constexpr int kMaxSmemBytes = 227 * 1024;  // dynamic shared memory per block, sm_90
 
 template <typename T> constexpr int kVec = 16 / static_cast<int>(sizeof(T));

@@ -55,12 +55,19 @@
 // Pallas kernel's: h rounded to the working type before the product,
 // float32 sums, + att_b, q in the working type; bf16 scores add keys + q as
 // bf16 pairs; alpha is rounded to the working type once, after the softmax,
-// for the context. The kernel is compiled for each beam count, so that its
-// per-beam loops run exactly K times.
+// for the context. The kernel is compiled for each beam count up to
+// kMaxBeams, so that its per-beam loops run exactly K times.
+//
+// More beams than kMaxBeams (a mma tile's 8 columns) are split into groups
+// of at most kMaxBeams, as even as they go (10 beams: 5 and 5), and each
+// group is a launch of its own over the same images: the kernel reads beams
+// [k0, k0 + KB) of each image's Kall. Each beam's gating, query, scores,
+// softmax and context depend on that beam alone, so the results are those
+// of one launch; the cost is a second read of the key and value rows.
 //
 // Widths: H and A multiples of 64 bytes of elements (the H halves must hold
-// whole 16-row mma steps), H / 2 at most 512 16-byte vectors, K <= 8,
-// 16-byte aligned tensors.
+// whole 16-row mma steps), H / 2 at most 512 16-byte vectors, 16-byte
+// aligned tensors.
 #include <cooperative_groups.h>
 
 #include <type_traits>
@@ -75,7 +82,7 @@ namespace cg = cooperative_groups;
 
 constexpr int kMmaRows = 8;   // beams in one mma tile (the product's n)
 
-// Gating of units [j0, j0 + HH) for the K beams of image row0 / K, float32
+// Gating of units [j0, j0 + HH) for the K beams from row row0 on, float32
 // inside, h and c out in T; h (rounded to T) into h_s [K][hs] (local units).
 template <typename T>
 __device__ void gate_half(const T* __restrict__ gates1, const T* __restrict__ c_att,
@@ -290,7 +297,7 @@ beam_decoder_core_kernel(const T* __restrict__ gates1, const T* __restrict__ c_a
                          const T* __restrict__ att_b, const T* __restrict__ att_w,
                          T* __restrict__ h_out, T* __restrict__ c_out, T* __restrict__ ctx,
                          float* __restrict__ alpha, long long* __restrict__ stamps, int S,
-                         int A, int H) {
+                         int A, int H, int Kall, int k0) {
   constexpr int VEC = kVec<T>;
   constexpr int K = KB;
   extern __shared__ __align__(128) char smem[];
@@ -299,7 +306,7 @@ beam_decoder_core_kernel(const T* __restrict__ gates1, const T* __restrict__ c_a
   const int rank = static_cast<int>(cluster.block_rank());
   const int peer = rank ^ 1;
   const int b = blockIdx.x / kClusterBlocks;
-  const long long row0 = static_cast<long long>(b) * K;
+  const long long row0 = static_cast<long long>(b) * Kall + k0;   // the group's first beam
   const int HH = H / 2, j0 = rank * HH;
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + P.bars);
   int* n_live = reinterpret_cast<int*>(smem + P.n_live);
@@ -435,8 +442,9 @@ beam_decoder_core_kernel(const T* __restrict__ gates1, const T* __restrict__ c_a
 template <typename T, int KB>
 int launch(const void* gates1, const void* c_att, const void* keys, const void* v_enc,
            const void* mask, const void* att_wh, const void* att_b, const void* att_w,
-           void* h_out, void* c_out, void* ctx, void* alpha, void* stamps, int B, int K, int S,
-           int A, int H, cudaStream_t stream) {
+           void* h_out, void* c_out, void* ctx, void* alpha, void* stamps, int B, int Kall,
+           int k0, int S, int A, int H, cudaStream_t stream) {
+  constexpr int K = KB;
   constexpr int W = 64 / static_cast<int>(sizeof(T));   // 64 bytes of elements
   if (A % W != 0 || H % W != 0 || H / 2 / kVec<T> > kAttnThreads)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -452,22 +460,22 @@ int launch(const void* gates1, const void* c_att, const void* keys, const void* 
       static_cast<const T*>(v_enc), static_cast<const float*>(mask),
       static_cast<const T*>(att_wh), static_cast<const T*>(att_b), static_cast<const T*>(att_w),
       static_cast<T*>(h_out), static_cast<T*>(c_out), static_cast<T*>(ctx),
-      static_cast<float*>(alpha), static_cast<long long*>(stamps), S, A, H);
+      static_cast<float*>(alpha), static_cast<long long*>(stamps), S, A, H, Kall, k0);
   return 0;
 }
 
-// The kernel is compiled for each beam count K = 1 .. kMaxBeams, so that
-// its per-beam loops run exactly K times.
+// The kernel is compiled for each beam count KB = 1 .. kMaxBeams, so that
+// its per-beam loops run exactly KB times: one launch a group of beams.
 template <typename T>
 int launch_k(const void* gates1, const void* c_att, const void* keys, const void* v_enc,
              const void* mask, const void* att_wh, const void* att_b, const void* att_w,
-             void* h_out, void* c_out, void* ctx, void* alpha, void* stamps, int B, int K, int S,
-             int A, int H, cudaStream_t stream) {
-  switch (K) {
+             void* h_out, void* c_out, void* ctx, void* alpha, void* stamps, int B, int Kall,
+             int k0, int KB, int S, int A, int H, cudaStream_t stream) {
+  switch (KB) {
 #define CVC_BEAMS(k)                                                                          \
   case k:                                                                                     \
     return launch<T, k>(gates1, c_att, keys, v_enc, mask, att_wh, att_b, att_w, h_out, c_out, \
-                        ctx, alpha, stamps, B, K, S, A, H, stream);
+                        ctx, alpha, stamps, B, Kall, k0, S, A, H, stream);
     CVC_BEAMS(1) CVC_BEAMS(2) CVC_BEAMS(3) CVC_BEAMS(4)
     CVC_BEAMS(5) CVC_BEAMS(6) CVC_BEAMS(7) CVC_BEAMS(8)
 #undef CVC_BEAMS
@@ -476,27 +484,46 @@ int launch_k(const void* gates1, const void* c_att, const void* keys, const void
   }
 }
 
+// K beams in groups of at most kMaxBeams, as even as they go: one launch a
+// group, in order.
+template <typename T>
+int launch_groups(const void* gates1, const void* c_att, const void* keys, const void* v_enc,
+                  const void* mask, const void* att_wh, const void* att_b, const void* att_w,
+                  void* h_out, void* c_out, void* ctx, void* alpha, void* stamps, int B, int K,
+                  int S, int A, int H, cudaStream_t stream) {
+  const int groups = (K + kMaxBeams - 1) / kMaxBeams;
+  for (int g = 0, k0 = 0; g < groups; ++g) {
+    const int kb = K / groups + (g < K % groups ? 1 : 0);
+    const int rc = launch_k<T>(gates1, c_att, keys, v_enc, mask, att_wh, att_b, att_w, h_out,
+                               c_out, ctx, alpha, stamps, B, K, k0, kb, S, A, H, stream);
+    if (rc != 0) return rc;
+    k0 += kb;
+  }
+  return 0;
+}
+
 }  // namespace
 
-// stamps: null, or int64 [2B, kStampSlots] for the phase clock stamps.
+// K >= 1 beams an image, in ceil(K / kMaxBeams) launches. stamps: null, or
+// int64 [2B, kStampSlots] for the phase clock stamps (the last group's).
 extern "C" int cvc_beam_decoder_core(const void* gates1, const void* c_att, const void* keys,
                                      const void* v_enc, const void* mask, const void* att_wh,
                                      const void* att_b, const void* att_w, void* h_out,
                                      void* c_out, void* ctx, void* alpha, void* stamps, int B,
                                      int K, int S, int A, int H, int dtype, void* stream) {
   cudaGetLastError();
-  if (K < 1 || K > kMaxBeams) return static_cast<int>(cudaErrorInvalidValue);
+  if (K < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!(aligned16(keys) && aligned16(v_enc) && aligned16(ctx) && aligned16(gates1) &&
         aligned16(c_att) && aligned16(h_out) && aligned16(c_out) && aligned16(att_wh)))
     return static_cast<int>(cudaErrorInvalidValue);
   int rc;
   if (dtype == kF32) {
-    rc = launch_k<float>(gates1, c_att, keys, v_enc, mask, att_wh, att_b, att_w, h_out, c_out,
-                       ctx, alpha, stamps, B, K, S, A, H, st);
+    rc = launch_groups<float>(gates1, c_att, keys, v_enc, mask, att_wh, att_b, att_w, h_out,
+                              c_out, ctx, alpha, stamps, B, K, S, A, H, st);
   } else if (dtype == kBF16) {
-    rc = launch_k<__nv_bfloat16>(gates1, c_att, keys, v_enc, mask, att_wh, att_b, att_w, h_out,
-                               c_out, ctx, alpha, stamps, B, K, S, A, H, st);
+    rc = launch_groups<__nv_bfloat16>(gates1, c_att, keys, v_enc, mask, att_wh, att_b, att_w,
+                                      h_out, c_out, ctx, alpha, stamps, B, K, S, A, H, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

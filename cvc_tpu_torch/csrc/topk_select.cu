@@ -1,7 +1,7 @@
 // Fused per-row top-k + logsumexp over the vocabulary.
 //
 // Replaces cvc_tpu/ops/pallas/topk_select.py::fused_topk_lse (_kernel).
-//   logits [N, V] float32 or bf16, k <= 8
+//   logits [N, V] float32 or bf16, 1 <= k <= min(16, V)
 //   -> vals [N, k] float32, idxs [N, k] int32, lse [N] float32
 // Order is exactly lax.top_k's: descending value, and among equal values
 // the lowest index first.
@@ -45,6 +45,9 @@
 //   for the bytes of all the row's warps: one merges the pairs, the other
 //   picks the k best of the lists, one a lane, in k rounds of the same two
 //   reductions over the lists' heads (the winner's lane pops it).
+// - The kernel is compiled for k = 1 .. 8, and for 16, which serves k 9 to
+//   16: the best k of a row are the first k of its best 16 in the total
+//   order, so the launch writes those.
 // - Every compare is by the total order (value descending, index
 //   ascending) and every list has a fixed slot, so the result does not
 //   depend on which block or warp arrives first, and the (max, sum) pairs
@@ -79,6 +82,7 @@ constexpr int kTopkVecs = 4;           // 16-byte vectors a thread holds at once
 constexpr int kTopkMaxCluster = 8;     // blocks a row, at most (the portable cluster size)
 constexpr int kTopkMaxLists = kTopkMaxCluster * kTopkMaxThreads / 32;   // warps a row
 constexpr int kNoIndex = 0x7fffffff;   // the index of an empty entry (key 0)
+constexpr int kTopkMaxK = 16;          // the largest k, compiled as one list length
 
 // The total order of the selection: value descending, index ascending.
 __device__ __forceinline__ bool better(unsigned ak, int ai, unsigned bk, int bi) {
@@ -187,11 +191,13 @@ __device__ __forceinline__ float element(const uint4 (&raw)[kTopkVecs], int e) {
 }
 
 // grid: N clusters of C blocks; block b of cluster r takes the b-th share of
-// row r's vectors. stamps: null, or [N * C, kStampSlots] clock stamps.
+// row r's vectors. K: the lists' length, of which the first k <= K are
+// written (vals, idxs [N, k]). stamps: null, or [N * C, kStampSlots] clock
+// stamps.
 template <typename T, int K>
-__global__ void __launch_bounds__(kTopkMaxThreads, K <= 5 ? 3 : 2)
+__global__ void __launch_bounds__(kTopkMaxThreads, K <= 5 ? 3 : K <= 8 ? 2 : 1)
 topk_lse_kernel(const T* __restrict__ logits, float* __restrict__ vals, int* __restrict__ idxs,
-                float* __restrict__ lse, long long* __restrict__ stamps, int V, int C) {
+                float* __restrict__ lse, long long* __restrict__ stamps, int V, int C, int k) {
   constexpr int VEC = kVec<T>;
   // rank 0's: the row's lists, K (value, index) pairs each, and their (max, sum) pairs
   __shared__ uint2 cand[kTopkMaxLists * K];
@@ -348,9 +354,9 @@ topk_lse_kernel(const T* __restrict__ logits, float* __restrict__ vals, int* __r
     const unsigned jk = __reduce_max_sync(kFullWarp, top.k[0]);
     const int ji = __reduce_min_sync(kFullWarp, top.k[0] == jk ? top.i[0] : kNoIndex);
     if (top.i[0] == ji && ji != kNoIndex) top.pop();
-    if (lane == j) {
-      vals[static_cast<long long>(r) * K + j] = value_of(jk);
-      idxs[static_cast<long long>(r) * K + j] = ji;
+    if (lane == j && j < k) {
+      vals[static_cast<long long>(r) * k + j] = value_of(jk);
+      idxs[static_cast<long long>(r) * k + j] = ji;
     }
   }
   stamp(stamps, 4);
@@ -358,27 +364,29 @@ topk_lse_kernel(const T* __restrict__ logits, float* __restrict__ vals, int* __r
 
 template <typename T, int K>
 int launch_k(const void* logits, void* vals, void* idxs, void* lse, void* stamps, int N, int V,
-             int cluster, int threads, cudaStream_t st) {
+             int k, int cluster, int threads, cudaStream_t st) {
   return static_cast<int>(launch_dependent_cluster(
       topk_lse_kernel<T, K>, dim3(static_cast<unsigned>(N) * cluster), dim3(threads),
       static_cast<unsigned>(cluster), 0, st, static_cast<const T*>(logits),
       static_cast<float*>(vals), static_cast<int*>(idxs), static_cast<float*>(lse),
-      static_cast<long long*>(stamps), V, cluster));
+      static_cast<long long*>(stamps), V, cluster, k));
 }
 
 template <typename T>
 int launch(const void* logits, void* vals, void* idxs, void* lse, void* stamps, int N, int V,
            int k, int cluster, int threads, cudaStream_t st) {
   switch (k) {
-    case 1: return launch_k<T, 1>(logits, vals, idxs, lse, stamps, N, V, cluster, threads, st);
-    case 2: return launch_k<T, 2>(logits, vals, idxs, lse, stamps, N, V, cluster, threads, st);
-    case 3: return launch_k<T, 3>(logits, vals, idxs, lse, stamps, N, V, cluster, threads, st);
-    case 4: return launch_k<T, 4>(logits, vals, idxs, lse, stamps, N, V, cluster, threads, st);
-    case 5: return launch_k<T, 5>(logits, vals, idxs, lse, stamps, N, V, cluster, threads, st);
-    case 6: return launch_k<T, 6>(logits, vals, idxs, lse, stamps, N, V, cluster, threads, st);
-    case 7: return launch_k<T, 7>(logits, vals, idxs, lse, stamps, N, V, cluster, threads, st);
-    case 8: return launch_k<T, 8>(logits, vals, idxs, lse, stamps, N, V, cluster, threads, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 1: return launch_k<T, 1>(logits, vals, idxs, lse, stamps, N, V, k, cluster, threads, st);
+    case 2: return launch_k<T, 2>(logits, vals, idxs, lse, stamps, N, V, k, cluster, threads, st);
+    case 3: return launch_k<T, 3>(logits, vals, idxs, lse, stamps, N, V, k, cluster, threads, st);
+    case 4: return launch_k<T, 4>(logits, vals, idxs, lse, stamps, N, V, k, cluster, threads, st);
+    case 5: return launch_k<T, 5>(logits, vals, idxs, lse, stamps, N, V, k, cluster, threads, st);
+    case 6: return launch_k<T, 6>(logits, vals, idxs, lse, stamps, N, V, k, cluster, threads, st);
+    case 7: return launch_k<T, 7>(logits, vals, idxs, lse, stamps, N, V, k, cluster, threads, st);
+    case 8: return launch_k<T, 8>(logits, vals, idxs, lse, stamps, N, V, k, cluster, threads, st);
+    default:
+      return launch_k<T, kTopkMaxK>(logits, vals, idxs, lse, stamps, N, V, k, cluster, threads,
+                                    st);
   }
 }
 
@@ -390,7 +398,7 @@ extern "C" int cvc_topk_lse(const void* logits, void* vals, void* idxs, void* ls
                             int N, int V, int k, int cluster, int threads, int dtype,
                             void* stream) {
   cudaGetLastError();
-  if (k < 1 || k > kMaxBeams || k > V) return static_cast<int>(cudaErrorInvalidValue);
+  if (k < 1 || k > kTopkMaxK || k > V) return static_cast<int>(cudaErrorInvalidValue);
   if (cluster < 1 || cluster > kTopkMaxCluster || (cluster & (cluster - 1)) != 0 ||
       threads < 32 || threads > kTopkMaxThreads || threads % 32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);

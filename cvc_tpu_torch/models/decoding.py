@@ -89,7 +89,7 @@ def _beam_step(params, cfg, carry, prev_word, v_enc, keys, region_mask,
     w_hl, _, w_e = core._split_wx_att(al["wx"].to(dtype), E, H)
     gates1 = (emb @ w_e + vg_pre_k + h_lang @ w_hl
               + h_att @ al["wh"].to(dtype))
-    if dispatch.use_pallas(cfg, keys.device, beam_size=K):
+    if dispatch.use_pallas(cfg, keys.device):
         # one kernel for the middle of the step: LSTM1 gating -> q
         # projection -> masked attention -> context
         h_att, c_att, ctx, alpha = fused_beam_decoder_core(
@@ -184,7 +184,7 @@ def beam_search(params, cfg, arrays, beam_size: int, max_len: int,
     dev = feats.device
     B = feats.shape[0]
     L = max_len + 1
-    select = dispatch.use_pallas_select(cfg, dev, k=K)
+    select = dispatch.use_pallas_select(cfg, dev)
 
     v_enc, keys, v_global = _encode(params, cfg, arrays)
     vg_pre = _vg_pre(params, cfg, v_global)
@@ -286,12 +286,13 @@ def make_decoder(cfg, eval_cfg, device="cuda"):
     """The generation function `fn(params, arrays) -> dict` for
     EvalConfig.sample_method, memoized on the config values and the device
     (LRU, 32 entries). `device` must be usable: the default, CUDA, raises
-    without a GPU. Raises ValueError where cfg sets `use_pallas` or
-    `pallas_select` True and the kernels do not take its widths or the
-    beam count on `device` (`dispatch.check_fit`)."""
+    without a GPU. Raises ValueError where the kernels that cfg's
+    dispatch picks on `device` do not take its widths or the beam count
+    (`dispatch.require_fit`)."""
     device = dispatch.resolve_device(device)
     beam = eval_cfg.sample_method == "beam" and eval_cfg.beam_size > 1
-    dispatch.check_fit(cfg, device, eval_cfg.beam_size if beam else None)
+    dispatch.require_fit(cfg, device, "beam" if beam else "greedy",
+                         eval_cfg.beam_size)
     key = (repr(dataclasses.asdict(cfg)), repr(dataclasses.asdict(eval_cfg)),
            str(device))
     if key in _DECODER_CACHE:

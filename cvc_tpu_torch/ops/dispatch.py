@@ -2,32 +2,30 @@
 
 `ModelConfig.use_pallas` and `ModelConfig.pallas_select` keep their names
 from the JAX package. Left as None (auto) they pick the hand-written
-kernels for tensors on a CUDA device where the configuration and the beam
-count fit the kernels' rules, and the plain PyTorch versions otherwise
-(tensors on the CPU, or a beam count, width or type a kernel does not
-take: the reference's auto dispatch falls back where its kernels do not
-fit too). An explicit False is the A/B switch to the plain path on any
-device. An explicit True asks for the kernel wrappers everywhere, which
-run their plain versions on CPU tensors (there is no interpret mode);
-where it cannot hold on a CUDA device, `check_fit` raises when the
-decoder or the train step is made, naming the rule, instead of a wrapper
-raising in the middle of a decode.
+kernels for tensors on a CUDA device and the plain PyTorch versions for
+tensors on the CPU. An explicit False is the A/B switch to the plain path
+on any device; an explicit True asks for the kernel wrappers everywhere,
+which still run their plain versions on CPU tensors (there is no interpret
+mode). The JAX package's 512-slot gate does not exist here: it is a TPU
+VMEM limit, and the Hopper kernels loop over the region slots instead.
 
-Each kernel module states its rule once, as a `fit_error` function that
-its wrapper also checks. The JAX package's 512-slot gate does not exist
-here: it is a TPU VMEM limit, and the Hopper kernels loop over the region
-slots instead.
+A CUDA device never falls back to the plain path on its own. Each kernel
+module states the widths (and the beam count or k) its kernel takes once,
+as a `fit_error` function that its wrapper also checks; where the kernels
+that a path would launch on a CUDA device, under auto or an explicit True,
+do not take the configuration, `require_fit` raises when the decoder, the
+Captioner or the train step is made, naming the rule, instead of a
+wrapper raising in the middle of a decode. The model's widths (multiples
+of 16 bytes) and beam counts up to 16 fit.
 """
 
 from __future__ import annotations
 
 import torch
 
-from cvc_tpu_torch.config import ModelConfig
 from cvc_tpu_torch.ops.kernels import (attention, decoder_step, lstm,
                                        topk_select, xent)
 
-_DEFAULTS = ModelConfig()
 _ELEM_SIZE = {"float32": 4, "bfloat16": 2}
 
 
@@ -45,96 +43,81 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def _field(cfg, name):
-    """cfg's field, or ModelConfig's default where cfg has none."""
-    return getattr(cfg, name, getattr(_DEFAULTS, name))
-
-
-def step_misfit(cfg, beam_size: int | None = None) -> str | None:
-    """The first kernel rule that cfg's widths and type break, or None: for
-    a beam search of `beam_size` beams the beam decoder core's, else the
-    LSTM gates' and the attention forward's and backward's (the decoder
-    step of the greedy decode and of the teacher-forced scans)."""
-    H, A = _field(cfg, "rnn_size"), _field(cfg, "att_hid_size")
-    es = _ELEM_SIZE.get(_field(cfg, "dtype"), 0)
-    if not es:
-        return f"dtype {_field(cfg, 'dtype')} is not float32 or bfloat16"
-    if beam_size is not None:
-        return decoder_step.fit_error(beam_size, A, H, es)
-    return (lstm.fit_error(H, es) or attention.forward_fit_error(A, H, es)
-            or attention.backward_fit_error(A, H, es))
-
-
-def train_scan_misfit(cfg) -> str | None:
-    """`step_misfit` and the masked cross entropy's rule (float32 logits)."""
-    return (step_misfit(cfg)
-            or xent.fit_error(_field(cfg, "vocab_size"), 4))
-
-
-def select_misfit(cfg, k: int) -> str | None:
-    """The top-k + logsumexp kernel's rule for the k best of the vocabulary
-    head's logits: float32, or bf16 in a beam search of a bf16 model under
-    `beam_select_bf16`."""
-    bf16 = (k > 1 and _field(cfg, "beam_select_bf16")
-            and _field(cfg, "dtype") == "bfloat16")
-    return topk_select.fit_error(k, _field(cfg, "vocab_size"), 2 if bf16 else 4)
-
-
-def _resolve(flag, device, misfit) -> bool:
+def _resolve(flag, device) -> bool:
     if flag is None:
-        return torch.device(device).type == "cuda" and misfit() is None
+        return torch.device(device).type == "cuda"
     return bool(flag)
 
 
-def use_pallas(cfg, device: torch.device, beam_size: int | None = None) -> bool:
-    """The decoder step's kernels (`ModelConfig.use_pallas`): for a beam
-    search of `beam_size` beams the beam decoder core, else the LSTM gates
-    and the attention kernels (`step_misfit`)."""
-    return _resolve(getattr(cfg, "use_pallas", None), device,
-                    lambda: step_misfit(cfg, beam_size))
+def use_pallas(cfg, device: torch.device) -> bool:
+    """The attention/LSTM kernels and the beam decoder core
+    (`ModelConfig.use_pallas`)."""
+    return _resolve(cfg.use_pallas, device)
 
 
-def use_pallas_select(cfg, device: torch.device, k: int = 1) -> bool:
-    """The top-k + logsumexp select kernel for the k best
-    (`ModelConfig.pallas_select`), a knob of its own so the two can be
-    A/B'd separately."""
-    return _resolve(getattr(cfg, "pallas_select", None), device,
-                    lambda: select_misfit(cfg, k))
+def use_pallas_select(cfg, device: torch.device) -> bool:
+    """The top-k + logsumexp select kernel (`ModelConfig.pallas_select`),
+    a knob of its own so the two can be A/B'd separately."""
+    return _resolve(cfg.pallas_select, device)
 
 
 def use_pallas_train_scan(cfg, device: torch.device) -> bool:
     """The kernels of the teacher-forced decode and reconstruct scans and
     of their losses (training and the evaluation loss): the attention/LSTM
     kernels with their backward kernels, and the masked cross entropy.
-    `ModelConfig.use_pallas` left as None picks them for CUDA tensors
-    where cfg fits their rules, as `use_pallas` does. The JAX package
+    `ModelConfig.use_pallas` left as None picks them for CUDA tensors and
+    the plain path for CPU tensors, as `use_pallas` does. The JAX package
     resolves auto to False even on a TPU, because there the kernel
     boundaries inside `jax.grad` block XLA's fusion across scan steps;
     PyTorch runs eagerly and fuses nothing across steps, so that reason
     does not hold here. An explicit False is the A/B switch to the plain
     path."""
-    return _resolve(getattr(cfg, "use_pallas", None), device,
-                    lambda: train_scan_misfit(cfg))
+    return use_pallas(cfg, device)
 
 
-def check_fit(cfg, device, beam_size: int | None = None,
-              train: bool = False) -> None:
-    """Raise ValueError where cfg asks for the kernels explicitly
-    (`use_pallas` or `pallas_select` True) on a CUDA device and a kernel's
-    rule does not hold for cfg: for the train step (`train`), or for a
-    decode of `beam_size` beams (None: greedy). Auto (None) falls back to
-    the plain path instead, and on the CPU every kernel's plain version
-    takes any shape."""
+def require_fit(cfg, device, path: str, beam_size: int = 1) -> None:
+    """Raise ValueError where `path` on `device` would launch a kernel
+    (under auto or an explicit True) whose rule cfg's widths or the beam
+    count break. `path` names the kernels it launches:
+
+    - "greedy": the LSTM gates and the attention forward (`use_pallas`),
+      the top-k for k 1 (`pallas_select`);
+    - "beam": the beam decoder core (`use_pallas`), the top-k for
+      k = beam_size (`pallas_select`; in bf16 under `beam_select_bf16`);
+    - "loss": the LSTM gates, the attention forward and the masked cross
+      entropy (`use_pallas`), the evaluation loss;
+    - "train": those and the LSTM and attention backward kernels.
+
+    On the CPU every wrapper takes its plain version, which takes any
+    shape."""
+    if path not in ("greedy", "beam", "loss", "train"):
+        raise ValueError(f"unknown path {path!r}")
     if torch.device(device).type != "cuda":
         return
-    checks = []
-    if getattr(cfg, "use_pallas", None):
-        checks.append(("use_pallas", train_scan_misfit(cfg) if train
-                       else step_misfit(cfg, beam_size)))
-    if not train and getattr(cfg, "pallas_select", None):
-        checks.append(("pallas_select", select_misfit(cfg, beam_size or 1)))
-    for knob, error in checks:
-        if error is not None:
-            raise ValueError(f"{knob}=True, but the kernels do not fit: "
-                             f"{error} (leave {knob} as None to fall back "
-                             f"to the plain path)")
+    H, A, V = cfg.rnn_size, cfg.att_hid_size, cfg.vocab_size
+    es = _ELEM_SIZE.get(cfg.dtype)
+    if es is None:
+        raise ValueError(f"dtype {cfg.dtype} is not float32 or bfloat16")
+    kernels, select = [], []
+    if path == "beam":
+        kernels.append(decoder_step.fit_error(A, H, es))
+        bf16 = cfg.beam_select_bf16 and cfg.dtype == "bfloat16"
+        select.append(topk_select.fit_error(beam_size, V, 2 if bf16 else 4))
+    else:
+        kernels += [lstm.fit_error(H, es), attention.forward_fit_error(A, H, es)]
+    if path == "greedy":
+        select.append(topk_select.fit_error(1, V, 4))
+    if path in ("loss", "train"):
+        kernels.append(xent.fit_error(V, 4))      # float32 logits
+    if path == "train":
+        kernels.append(attention.backward_fit_error(A, H, es))
+    for knob, errors, on in (("use_pallas", kernels, use_pallas(cfg, device)),
+                             ("pallas_select", select,
+                              use_pallas_select(cfg, device))):
+        error = next((e for e in errors if e is not None), None)
+        if on and error is not None:
+            value = getattr(cfg, knob)
+            raise ValueError(
+                f"{knob}={'None (auto)' if value is None else value} on "
+                f"{device}, but the kernels do not take this configuration: "
+                f"{error} (set {knob}=False for the plain PyTorch path)")

@@ -15,7 +15,10 @@ K times. On the card the work is bound by bytes: a cluster of two thread
 blocks takes each image, the Tensor Memory Accelerator brings each live
 key and value row into shared memory once for all K beams, and the q
 product runs on the tensor cores (bf16) inside the kernel; see the source
-for the design. Inference only: generation needs no gradient.
+for the design. A launch takes up to MAX_BEAMS beams; more are split into
+`beam_groups(K)` launches over the same images, as even as they go (beam
+10: two launches of 5), each of which reads the key and value rows again.
+Inference only: generation needs no gradient.
 """
 
 from __future__ import annotations
@@ -25,18 +28,21 @@ import torch
 from cvc_tpu_torch.ops.kernels import build
 from cvc_tpu_torch.ops.primitives import masked_softmax
 
-MAX_BEAMS = 8
+MAX_BEAMS = 8          # beams in one launch: the q product's 8 columns
 MAX_H_VECTORS = 1024   # H / 2 in 16-byte vectors: one column a thread
 
 
-def fit_error(K: int, A: int, H: int, elem_size: int) -> str | None:
-    """The kernel's rule: None where K beams over widths A and H of
-    `elem_size` bytes fit it, else the rule that breaks: K <= 8, A and H
-    multiples of 64 bytes (each block of an image's cluster takes half of
-    H, in whole 16-row steps of the bf16 product), H at most 1024 16-byte
-    vectors. (It also wants 16-byte aligned tensors.)"""
-    if not 1 <= K <= MAX_BEAMS:
-        return f"K={K} beams, the kernel takes 1..{MAX_BEAMS}"
+def beam_groups(K: int) -> int:
+    """Launches of one call with K beams an image."""
+    return -(-K // MAX_BEAMS)
+
+
+def fit_error(A: int, H: int, elem_size: int) -> str | None:
+    """The kernel's rule: None where widths A and H of `elem_size` bytes
+    fit it, else the rule that breaks: A and H multiples of 64 bytes (each
+    block of an image's cluster takes half of H, in whole 16-row steps of
+    the bf16 product), H at most 1024 16-byte vectors. Any beam count
+    fits. (It also wants 16-byte aligned tensors.)"""
     vec = build.vector_elems(elem_size)
     return build.width_error({"A": (A, 4 * vec), "H": (H, 4 * vec)},
                              {"H": (H, MAX_H_VECTORS * vec, MAX_H_VECTORS)})
@@ -71,8 +77,9 @@ def fused_beam_decoder_core(gates1, c_att, keys, v_enc, region_mask,
     region_mask [B,S] float32, att_wh [H,A], att_b [A], att_w [A]
     -> (h_att [B,K,H], c_att [B,K,H], ctx [B,K,H], alpha [B,K,S] float32).
 
-    CPU tensors take `beam_core_oracle`; CUDA tensors launch the kernel,
-    which takes K <= 8, one working type for every tensor but the mask, A
+    CPU tensors take `beam_core_oracle`; CUDA tensors launch the kernel
+    (`beam_groups(K)` times), which takes K >= 1, one working type for
+    every tensor but the mask, A
     and H multiples of 64 bytes of elements (each block of an image's
     cluster takes half of H, in whole 16-row steps of the bf16 product), H
     at most 1024 16-byte vectors, and 16-byte aligned inputs. `stamps`, an
@@ -91,7 +98,7 @@ def fused_beam_decoder_core(gates1, c_att, keys, v_enc, region_mask,
     B, K, H4 = gates1.shape
     H = H4 // 4
     S, A = keys.shape[1], keys.shape[2]
-    if (H4 != 4 * H or c_att.shape != (B, K, H) or keys.shape != (B, S, A)
+    if (K < 1 or H4 != 4 * H or c_att.shape != (B, K, H) or keys.shape != (B, S, A)
             or v_enc.shape != (B, S, H) or region_mask.shape != (B, S)
             or att_wh.shape != (H, A) or att_b.shape != (A,)
             or att_w.shape != (A,)):
@@ -100,7 +107,7 @@ def fused_beam_decoder_core(gates1, c_att, keys, v_enc, region_mask,
     build.check_fit(
         name, {"gates1": gates1, "c_att": c_att, "keys": keys,
                "v_enc": v_enc, "att_wh": att_wh},
-        fit_error(K, A, H, keys.element_size()))
+        fit_error(A, H, keys.element_size()))
     build.check_stamps(name, stamps, B, dev)
     h = torch.empty_like(c_att)
     c = torch.empty_like(c_att)
@@ -109,7 +116,7 @@ def fused_beam_decoder_core(gates1, c_att, keys, v_enc, region_mask,
     build.launch("cvc_beam_decoder_core", gates1, c_att, keys, v_enc,
                  region_mask, att_wh, att_b, att_w, h, c, ctx, alpha, stamps,
                  B, K, S, A, H, build.dtype_code(name, keys.dtype))
-    fused_beam_decoder_core.launches += 1
+    fused_beam_decoder_core.launches += beam_groups(K)
     return h, c, ctx, alpha
 
 

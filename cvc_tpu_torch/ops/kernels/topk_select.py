@@ -23,7 +23,7 @@ import torch
 
 from cvc_tpu_torch.ops.kernels import build
 
-MAX_K = 8
+MAX_K = 16   # k 1 to 8 have a list length each, 9 to 16 share one of 16
 _NEG = -3.0e38
 # the launch: an H100 has 132 SMs, and at the kernel's 40 registers a thread
 # an SM holds 48 warps; a block has at most 16 warps, a cluster at most 8
@@ -92,7 +92,7 @@ def fused_topk_lse(logits: torch.Tensor, k: int, stamps=None, shape=None):
     idxs [N,k] int32, lse [N] float32).
 
     CPU tensors take `topk_lse_plain`; CUDA tensors launch the kernel,
-    which takes 1 <= k <= min(8, V), V a multiple of 16 bytes of elements
+    which takes 1 <= k <= min(16, V), V a multiple of 16 bytes of elements
     (the vocabulary padded to 128 is) and 16-byte aligned logits. `shape`
     is (blocks in a row's cluster, threads in a block) where it is not
     `launch_shape`'s (tuning, and tests of the cluster's edges); `stamps`

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from cvc_tpu_torch.models.cyclical import cyclical_loss
-from cvc_tpu_torch.ops.dispatch import check_fit, resolve_device
+from cvc_tpu_torch.ops.dispatch import require_fit, resolve_device
 from cvc_tpu_torch.training.optimizer import make_optimizer
 
 
@@ -25,9 +25,10 @@ def make_train_step(model_cfg, train_cfg, steps_per_epoch: int,
     for the dropout draws (None: no dropout). The metrics are 0-d device
     tensors, `grad_norm` the gradients' global norm before clipping;
     nothing in the step waits for the host. Raises without a GPU unless
-    device="cpu", and raises ValueError where model_cfg sets `use_pallas`
-    True and the training kernels do not take its widths on `device`."""
-    check_fit(model_cfg, resolve_device(device), train=True)
+    device="cpu", and raises ValueError where the training kernels that
+    model_cfg's dispatch picks on `device` do not take its widths
+    (`dispatch.require_fit`)."""
+    require_fit(model_cfg, resolve_device(device), "train")
     if train_cfg.scheduled_sampling_start >= 0:
         raise NotImplementedError("scheduled sampling is not ported yet")
     optimizer = make_optimizer(train_cfg, steps_per_epoch)
@@ -52,9 +53,9 @@ def make_train_step(model_cfg, train_cfg, steps_per_epoch: int,
 def make_eval_step(model_cfg, device="cuda"):
     """eval_step(params, arrays) -> metrics: the cyclical loss with no
     dropout and no gradient. Raises without a GPU unless device="cpu",
-    and raises ValueError as make_train_step does for an explicit
-    `use_pallas` True that the kernels cannot hold."""
-    check_fit(model_cfg, resolve_device(device), train=True)
+    and raises ValueError as make_train_step does where the loss's kernels
+    do not take model_cfg's widths."""
+    require_fit(model_cfg, resolve_device(device), "loss")
 
     @torch.no_grad()
     def eval_step(params, arrays: dict) -> dict:

@@ -1,11 +1,14 @@
 """The port's kernel dispatch (cvc_tpu_torch/ops/dispatch.py) against the
 kernels' fit rules, on the CPU: each kernel module states its rule once
-(`fit_error`), auto (use_pallas / pallas_select None) resolves to the
-plain path for a CUDA device where a rule fails, and an explicit True
-raises when the decoder or the train step is made, naming the rule. The
-rules are plain Python, so they are evaluated here for a CUDA device
-without a card. A beam-10 search, which the kernels do not take (at most
-8 beams), decodes on the plain path and matches the JAX package's tokens.
+(`fit_error`), auto (use_pallas / pallas_select None) picks the kernels
+for a CUDA device and never falls back there, and where the kernels a
+path would launch do not take the configuration, `require_fit` raises
+when the decoder or the train step is made, naming the rule, for auto and
+an explicit True alike. The rules are plain Python, so they are evaluated
+here for a CUDA device without a card. The beam decoder core takes any
+beam count (in launches of at most 8 beams) and the top-k k up to 16, so
+a beam-10 search runs both kernels on the card; here it matches the JAX
+package's tokens through the kernels' plain versions.
 """
 
 import dataclasses
@@ -24,7 +27,7 @@ from cvc_tpu_torch.models.weights import params_from_numpy
 from cvc_tpu_torch.ops import dispatch
 from cvc_tpu_torch.ops.kernels import (attention, decoder_step, lstm,
                                        topk_select, xent)
-from cvc_tpu_torch.training.step import make_train_step
+from cvc_tpu_torch.training.step import make_eval_step, make_train_step
 from tests.conftest import random_batch, tiny_model_config
 
 CPU, CUDA = torch.device("cpu"), torch.device("cuda")
@@ -40,14 +43,16 @@ CPU, CUDA = torch.device("cpu"), torch.device("cuda")
     (attention.forward_fit_error, (18, 1024, 4), "A=18"),
     (attention.backward_fit_error, (512, 36, 4), None),
     (attention.backward_fit_error, (2052, 1024, 4), "A=2052 is above 2048"),
-    (decoder_step.fit_error, (5, 512, 1024, 2), None),
-    (decoder_step.fit_error, (8, 512, 1024, 4), None),
-    (decoder_step.fit_error, (9, 512, 1024, 4), "K=9 beams"),
-    (decoder_step.fit_error, (0, 512, 1024, 4), "K=0 beams"),
-    (decoder_step.fit_error, (5, 24, 1024, 4), "A=24"),
-    (decoder_step.fit_error, (5, 512, 40, 4), "H=40"),
+    (decoder_step.fit_error, (512, 1024, 2), None),
+    (decoder_step.fit_error, (512, 1024, 4), None),
+    (decoder_step.fit_error, (512, 4096, 4), None),
+    (decoder_step.fit_error, (512, 4112, 4), "H=4112 is above 4096"),
+    (decoder_step.fit_error, (24, 1024, 4), "A=24"),
+    (decoder_step.fit_error, (512, 40, 4), "H=40"),
     (topk_select.fit_error, (5, 8704, 4), None),
-    (topk_select.fit_error, (10, 8704, 4), "k=10"),
+    (topk_select.fit_error, (10, 8704, 4), None),
+    (topk_select.fit_error, (16, 8704, 2), None),
+    (topk_select.fit_error, (17, 8704, 4), "k=17"),
     (topk_select.fit_error, (5, 4, 4), "k=5"),
     (topk_select.fit_error, (1, 131, 4), "V=131"),
     (xent.fit_error, (8704, 4), None),
@@ -61,81 +66,106 @@ def test_kernel_fit_rules(rule, args, broken):
         assert err is not None and broken in err
 
 
-@pytest.mark.parametrize("fields,beam,scan_ok,beam_ok,select_ok", [
-    ({}, 5, True, True, True),                              # flagship
-    ({}, 10, True, False, False),                           # beam 10
-    ({"rnn_size": 1000}, 5, True, False, True),             # H % 16 floats
-    ({"rnn_size": 18}, 5, False, False, True),              # H % 4 floats
-    ({"att_hid_size": 2064}, 5, False, True, True),         # backward's A
-    ({"vocab_size": 131}, 5, False, True, False),           # V % 4 floats
-    ({"dtype": "bfloat16", "rnn_size": 1028}, 5, False, False, True),
+@pytest.mark.parametrize("K,groups", [(1, 1), (5, 1), (8, 1), (9, 2),
+                                      (10, 2), (16, 2), (17, 3)])
+def test_beam_core_launches_a_group_of_at_most_8_beams(K, groups):
+    """The beam decoder core's launches for K beams an image (the counter
+    adds one a launch): ceil(K / 8)."""
+    assert decoder_step.beam_groups(K) == groups
+
+
+@pytest.mark.parametrize("fields,path,beam,broken", [
+    ({}, "beam", 5, None),                                  # flagship
+    ({}, "beam", 10, None),                                 # beam 10
+    ({}, "beam", 16, None),
+    ({}, "beam", 17, r"pallas_select=None \(auto\) on cuda.*k=17"),
+    ({}, "train", 1, None),
+    ({}, "greedy", 1, None),
+    ({"rnn_size": 1000}, "beam", 5, "use_pallas=None.*H=1000"),   # 64 bytes
+    ({"rnn_size": 1000}, "train", 1, None),                 # 16 bytes fit
+    ({"rnn_size": 18}, "greedy", 1, "use_pallas=None.*H=18"),
+    ({"att_hid_size": 2064}, "train", 1, "A=2064 is above 2048"),
+    ({"att_hid_size": 2064}, "loss", 1, None),              # no backward
+    ({"att_hid_size": 2064}, "greedy", 1, None),
+    ({"vocab_size": 131}, "loss", 1, "use_pallas=None.*V=131"),
+    ({"vocab_size": 131}, "greedy", 1, "pallas_select=None.*V=131"),
+    ({"dtype": "bfloat16", "rnn_size": 1028}, "train", 1, "H=1028"),
 ])
-def test_auto_dispatch_falls_back_where_a_rule_fails(fields, beam, scan_ok,
-                                                     beam_ok, select_ok):
-    """use_pallas etc. at a CUDA device (no card needed: the rules are
-    plain Python): auto takes the kernels only where every rule of the
-    path holds; the CPU takes the plain path under auto; an explicit
-    value is obeyed."""
+def test_auto_dispatch_refuses_where_a_rule_fails(fields, path, beam,
+                                                   broken):
+    """Auto (use_pallas and pallas_select None) takes the kernels on a
+    CUDA device whatever the configuration and the plain path on the CPU;
+    where a kernel of the path breaks its rule, `require_fit` refuses the
+    CUDA configuration under auto, naming the rule, instead of a fall
+    back; an explicit False builds (the plain path on any device) and the
+    CPU takes any configuration. Each path is held to the rules of the
+    kernels it launches only."""
     cfg = ModelConfig(**fields)
-    assert dispatch.use_pallas_train_scan(cfg, CUDA) == scan_ok
-    assert dispatch.use_pallas(cfg, CUDA, beam_size=beam) == beam_ok
-    assert dispatch.use_pallas_select(cfg, CUDA, k=beam) == select_ok
-    assert dispatch.use_pallas_select(cfg, CUDA) == ("vocab_size"
-                                                      not in fields)
     for dev in (CPU, CUDA):
-        explicit = dataclasses.replace(cfg, use_pallas=True,
-                                       pallas_select=True)
-        assert dispatch.use_pallas_train_scan(explicit, dev)
-        assert dispatch.use_pallas(explicit, dev, beam_size=beam)
-        assert dispatch.use_pallas_select(explicit, dev, k=beam)
-        off = dataclasses.replace(cfg, use_pallas=False, pallas_select=False)
-        assert not dispatch.use_pallas_train_scan(off, dev)
-        assert not dispatch.use_pallas_select(off, dev, k=beam)
-    assert not dispatch.use_pallas_train_scan(cfg, CPU)
-    assert not dispatch.use_pallas(cfg, CPU, beam_size=beam)
+        on = dev.type == "cuda"
+        assert dispatch.use_pallas(cfg, dev) == on
+        assert dispatch.use_pallas_select(cfg, dev) == on
+        assert dispatch.use_pallas_train_scan(cfg, dev) == on
+        dispatch.require_fit(cfg, CPU, path, beam)
+    if broken is None:
+        dispatch.require_fit(cfg, CUDA, path, beam)
+    else:
+        with pytest.raises(ValueError, match=broken):
+            dispatch.require_fit(cfg, CUDA, path, beam)
+    off = dataclasses.replace(cfg, use_pallas=False, pallas_select=False)
+    dispatch.require_fit(off, CUDA, path, beam)
+    assert not dispatch.use_pallas_train_scan(off, CUDA)
+    assert not dispatch.use_pallas_select(off, CUDA)
 
 
 def test_explicit_true_raises_at_build_time_naming_the_rule():
-    """check_fit, which make_decoder, Captioner.build and make_train_step
-    call: an explicit True that a kernel cannot hold on a CUDA device
-    raises with the rule; auto, an explicit False and the CPU do not."""
-    beam10 = ModelConfig(use_pallas=True)
-    with pytest.raises(ValueError, match="use_pallas=True.*K=10 beams"):
-        dispatch.check_fit(beam10, CUDA, beam_size=10)
-    with pytest.raises(ValueError, match="pallas_select=True.*k=10"):
-        dispatch.check_fit(ModelConfig(pallas_select=True), CUDA,
-                           beam_size=10)
+    """require_fit, which make_decoder (so Captioner.build),
+    make_train_step and make_eval_step call: an explicit True that a
+    kernel cannot hold on a CUDA device raises with the rule, as auto
+    does; each knob answers for its own kernels; an explicit False and the
+    CPU do not raise."""
+    with pytest.raises(ValueError, match="use_pallas=True.*H=40"):
+        dispatch.require_fit(ModelConfig(use_pallas=True, rnn_size=40,
+                                         pallas_select=False),
+                             CUDA, "beam", 10)
+    with pytest.raises(ValueError, match="pallas_select=True.*k=17"):
+        dispatch.require_fit(ModelConfig(pallas_select=True), CUDA, "beam",
+                             17)
     with pytest.raises(ValueError, match="H=18"):
-        dispatch.check_fit(ModelConfig(use_pallas=True, rnn_size=18), CUDA)
+        dispatch.require_fit(ModelConfig(use_pallas=True, rnn_size=18), CUDA,
+                             "greedy")
     with pytest.raises(ValueError, match="A=2052"):
-        dispatch.check_fit(ModelConfig(use_pallas=True, att_hid_size=2052),
-                           CUDA, train=True)
+        dispatch.require_fit(ModelConfig(use_pallas=True, att_hid_size=2052),
+                             CUDA, "train")
     with pytest.raises(ValueError, match="V=131"):
-        dispatch.check_fit(ModelConfig(use_pallas=True, vocab_size=131),
-                           CUDA, train=True)
+        dispatch.require_fit(ModelConfig(use_pallas=True, vocab_size=131),
+                             CUDA, "train")
+    with pytest.raises(ValueError, match="unknown path"):
+        dispatch.require_fit(ModelConfig(), CPU, "sample")
     # the train step needs no select kernel; the beam search no xent
-    dispatch.check_fit(ModelConfig(pallas_select=True, vocab_size=131),
-                       CUDA, train=True)
-    dispatch.check_fit(ModelConfig(use_pallas=True), CUDA, beam_size=8)
-    dispatch.check_fit(ModelConfig(), CUDA, beam_size=10)
-    dispatch.check_fit(ModelConfig(use_pallas=False, pallas_select=False),
-                       CUDA, beam_size=10)
-    dispatch.check_fit(beam10, CPU, beam_size=10)
+    dispatch.require_fit(ModelConfig(use_pallas=False, pallas_select=True,
+                                     vocab_size=131), CUDA, "train")
+    dispatch.require_fit(ModelConfig(use_pallas=True), CUDA, "beam", 10)
+    dispatch.require_fit(ModelConfig(use_pallas=True, pallas_select=False),
+                         CUDA, "beam", 17)
+    dispatch.require_fit(ModelConfig(use_pallas=False, pallas_select=False),
+                         CUDA, "beam", 17)
     # on the CPU the entry points take any shape under explicit True
     tdec.make_decoder(ModelConfig(use_pallas=True, pallas_select=True),
-                      EvalConfig(beam_size=10), device="cpu")
+                      EvalConfig(beam_size=17), device="cpu")
     make_train_step(ModelConfig(use_pallas=True, rnn_size=18),
                     TrainConfig(), 10, device="cpu")
+    make_eval_step(ModelConfig(use_pallas=True, vocab_size=131),
+                   device="cpu")
 
 
 @pytest.mark.parametrize("use_pallas", [None, True])
 def test_beam_10_matches_jax(use_pallas):
-    """A beam count above the kernels' 8: auto decodes on the plain path
-    (on the CPU it would anyway; on the card `dispatch.use_pallas` and
-    `use_pallas_select` resolve so for K 10), an explicit True takes the
-    wrappers' plain versions on CPU tensors. Tokens exact against the JAX
-    package's, scores and alphas at tests/test_torch_decoding.py's
-    tolerance."""
+    """Beam 10, which the beam core takes in two launches of 5 beams and
+    the top-k with its list of 16: auto takes the plain path on the CPU,
+    an explicit True the wrappers' plain versions on CPU tensors (the
+    kernels' own math). Tokens exact against the JAX package's, scores
+    and alphas at tests/test_torch_decoding.py's tolerance."""
     jcfg = tiny_model_config()
     jparams = jcore.init_params(jax.random.PRNGKey(10), jcfg)
     arrays = random_batch(jcfg, batch=4, seed=10)
