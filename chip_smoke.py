@@ -537,7 +537,7 @@ def kernel_phase(sm: Smoke, results: dict) -> None:
                     for _ in range(n_sets(bytes_))]
             label = f"fused_topk_lse {dname} N={N} V={V} k={k}"
             lse_err = check_topk(sm, label, *sets[0], pad=4)
-            cluster = topk_select.launch_shape(N, V, sz)[0]
+            cluster = topk_select.launch_shape(N, V, sz, k)[0]
             stamps = torch.zeros((N * cluster, STAMP_SLOTS),
                                  dtype=torch.int64, device=sm.dev)
             topk_select.fused_topk_lse(*sets[0], stamps=stamps)

@@ -26,16 +26,24 @@ from cvc_tpu_torch.ops.kernels import build
 MAX_K = 16   # k 1 to 8 have a list length each, 9 to 16 share one of 16
 _NEG = -3.0e38
 # the launch: an H100 has 132 SMs, and at the kernel's 40 registers a thread
-# an SM holds 48 warps; a block has at most 16 warps, a cluster at most 8
-# blocks (the portable size), a thread at most 4 vectors at a time
-SMS, SM_WARPS = 132, 48
-CARD_WARPS = SMS * SM_WARPS
+# (k <= 8) an SM holds 48 warps; the list of 16 may take 128 registers a
+# thread (its launch bounds), and then an SM holds 16 warps; a block has at
+# most 16 warps, a cluster at most 8 blocks (the portable size), a thread at
+# most 4 vectors at a time
+SMS, SM_WARPS, SM_WARPS_LONG_LIST = 132, 48, 16
 MAX_WARPS, MAX_CLUSTER, MAX_VECS = 16, 8, 4
 
 
-def launch_shape(N: int, V: int, elem_size: int) -> tuple[int, int]:
+def card_warps(k: int) -> int:
+    """The warps of the kernel for k that the card holds at once."""
+    return SMS * (SM_WARPS if k <= 8 else SM_WARPS_LONG_LIST)
+
+
+def launch_shape(N: int, V: int, elem_size: int,
+                 k: int = 1) -> tuple[int, int]:
     """(blocks in a row's cluster, threads in a block) of the kernel's
-    launch for [N, V] logits of `elem_size` bytes an element.
+    launch for the k best of [N, V] logits of `elem_size` bytes an
+    element.
 
     A row gets the warps that give each thread MAX_VECS 16-byte vectors
     (a warp's selection costs as much as a dozen elements a thread, so
@@ -46,9 +54,10 @@ def launch_shape(N: int, V: int, elem_size: int) -> tuple[int, int]:
     stay within MAX_WARPS, and over twice as many blocks while that still
     leaves SMs without a block. At V 8704 in float32: 2 blocks of 288
     threads a row for N 64 to 320, one block of 288 (two batches) from
-    N 640 on, 8 blocks of 96 for a row alone."""
+    N 640 on, 8 blocks of 96 for a row alone; for k 10 (the list of 16,
+    a third of the warps an SM), one block of 96 at N 640."""
     vectors = max(1, V * elem_size // 16)
-    budget = max(1, CARD_WARPS // max(N, 1))
+    budget = max(1, card_warps(k) // max(N, 1))
     warps = min(-(-vectors // (32 * MAX_VECS)), budget)
     cluster = 1
     while cluster < MAX_CLUSTER and warps > cluster * MAX_WARPS:
@@ -107,7 +116,7 @@ def fused_topk_lse(logits: torch.Tensor, k: int, stamps=None, shape=None):
     N, V = logits.shape
     build.check_fit(name, {"logits": logits},
                     fit_error(k, V, logits.element_size()))
-    cluster, threads = shape or launch_shape(N, V, logits.element_size())
+    cluster, threads = shape or launch_shape(N, V, logits.element_size(), k)
     if (cluster not in (1, 2, 4, 8) or threads % 32
             or not 32 <= threads <= 32 * MAX_WARPS):
         raise ValueError(f"{name}: shape {(cluster, threads)} is not (1, 2, "

@@ -6,7 +6,10 @@ turns, on one NVIDIA GPU.
 
 Each DIR is a checkout (or a copy) holding `cvc_tpu_torch/`; the current
 directory's `chip_smoke.py` makes the inputs and times the calls, so every
-tree is measured with the same code. Give the trees in the order to run
+tree is measured with the same code, and each case's inputs come from a
+seed of its own (its name, shape and type), so every tree gets the same
+inputs even where it runs a case the other does not (the masked cross
+entropy's lines give their live rows). Give the trees in the order to run
 them, parent and change in turns (P C C P). For each tree, in a process of
 its own, it builds that tree's kernels and prints, in bf16 and float32:
 
@@ -50,6 +53,7 @@ import inspect
 import json
 import subprocess
 import sys
+import zlib
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -208,11 +212,16 @@ def measure(tree: Path) -> None:
     for dname, dt in (("bfloat16", torch.bfloat16),
                       ("float32", torch.float32)):
         for name, label, fn, make, stamp_blocks in cases:
+            # each case's inputs from a seed of its own, so that they are
+            # the same in every tree whatever cases ran before
+            gen.manual_seed(zlib.crc32(f"{name} {label} {dname}".encode()))
             sets = make(dt)
             blocks = stamp_blocks(dt)
             ms = sm.time_ms([lambda a=a: fn(*a) for a in sets], 200)[0]
             line = {"tree": str(tree), "kernel": name, "case": label,
                     "dtype": dname, "ms": ms}
+            if name.startswith("fused_masked_xent"):
+                line["live_rows"] = int(sets[0][2].sum())
             if blocks and "stamps" in inspect.signature(fn).parameters:
                 st = torch.zeros((blocks, slots), dtype=torch.int64,
                                  device=sm.dev)

@@ -231,21 +231,36 @@ def test_topk_launch_shape(N, V, elem, want):
     assert topk_select.launch_shape(N, V, elem) == want
 
 
+@pytest.mark.parametrize("N,V,elem,k,want", [
+    (640, 8704, 4, 10, (1, 96)),  # a beam-10 step: the list of 16 holds a
+    (320, 8704, 4, 16, (1, 192)),  # third of the warps an SM
+    (64, 8704, 4, 10, (2, 288)),
+    (640, 8704, 4, 8, (1, 288)),  # k 8 keeps the short lists' shape
+])
+def test_topk_launch_shape_long_list(N, V, elem, k, want):
+    """k 9 to 16 run the list of 16, whose registers leave an SM a third
+    of the warps: the launch gives a row fewer warps so that it still runs
+    in one wave."""
+    assert topk_select.launch_shape(N, V, elem, k) == want
+
+
 @pytest.mark.parametrize("N", [1, 13, 64, 128, 320, 640, 1344, 6000, 10**6])
 def test_topk_launch_shape_fits_the_card(N):
-    """Any N: a cluster of 1, 2, 4 or 8 blocks of whole warps, at most 16,
-    and no more warps in all than the card holds at once while a row can
-    still have one."""
+    """Any N and k: a cluster of 1, 2, 4 or 8 blocks of whole warps, at
+    most 16, and no more warps in all than the card holds at once while a
+    row can still have one."""
     for V, elem in ((8704, 4), (8704, 2), (1024, 4), (128, 2), (16, 2),
                     (2 ** 20, 4)):
-        cluster, threads = topk_select.launch_shape(N, V, elem)
-        assert cluster in (1, 2, 4, 8)
-        assert threads % 32 == 0 and 32 <= threads <= 512
-        warps = cluster * threads // 32
-        vectors = V * elem // 16
-        assert warps <= max(1, -(-vectors // 32)) + cluster - 1
-        if N <= topk_select.CARD_WARPS:
-            assert N * (warps - cluster + 1) <= topk_select.CARD_WARPS
+        for k in (1, 8, 10, 16):
+            cluster, threads = topk_select.launch_shape(N, V, elem, k)
+            assert cluster in (1, 2, 4, 8)
+            assert threads % 32 == 0 and 32 <= threads <= 512
+            warps = cluster * threads // 32
+            vectors = V * elem // 16
+            assert warps <= max(1, -(-vectors // 32)) + cluster - 1
+            held = topk_select.card_warps(k)
+            if N <= held:
+                assert N * (warps - cluster + 1) <= held
 
 
 def test_topk_lse_plain_vocab_pad_bias_matches_pallas():
