@@ -73,7 +73,31 @@
    step's, at `grad_tol`; ms a step of the stacked and per-step kernel
    paths and the plain path in both types, with one profiled step of each
    kernel path (launches, float adds, busy time).
-5. Prints one `{"kernels": [...]}` line, then, as the last line,
+5. Trains on the synthetic world (`data/synthetic.py`, built at the c3
+   widths from a seed, 256 images; build time and host ms a batch of
+   `make_batches` inline, with 1 and 4 assembly threads, printed): the c3
+   config's f32 kernel path for 3 epochs (the last epoch's mean loss
+   below the first's), then the small world of the repo's verify notes
+   (vocab 128, E 64, H 128, A 64, D 256, 16 regions, 14 words, 64 images,
+   B 32, Adam 3e-3) for 30 epochs through the kernels: the loss falls by
+   3 nats or more and the attention entropy to under half.
+6. Scheduled sampling at the c3 widths, f32, on the kernel path: 3 steps
+   at ss_prob 0.25 (ms a step against the teacher-forced step); at ss_prob
+   0 the loss and gradients against the teacher-forced per-step scan's,
+   at ss_prob 1 against the plain path teacher-forced on the words the
+   kernel path fed, at `grad_tol` with the 5%-off copies rejected.
+7. SCST at the c3 widths, B 64, f32, on the synthetic world: 3 iterations
+   of `scst_train_batch` with xe_weight 0 and one with 0.5 (rewards
+   finite, tokens in range with PAD after the first EOS), ms an iteration
+   split into sample, reward (host) and update, and the policy-gradient
+   loss and gradients of the kernel path against the plain path's on
+   fixed sampled tokens and advantages.
+8. The region transformer: the c3 config with obj_interact, one f32 train
+   step (loss and gradients against the plain path's) and beam-5 serving
+   (tokens against the plain path's).
+   Phases 5 to 8 read the launch counters around every step, iteration
+   or batch against the counts the code implies.
+9. Prints one `{"kernels": [...]}` line, then, as the last line,
    `{"ok": true, "device": {...}}`.
 
 Exits non-zero, with no result line, on any failure, when no CUDA device
@@ -792,7 +816,8 @@ def check_bwd(sm, label, args, dname) -> float:
 def train_kernel_phase(sm: Smoke, results: dict) -> None:
     """The training slice's kernels against their plain versions at the
     c3 training shapes (B = 64 rows, and 2B = 128 for the merged
-    GT-query scan), bf16 and float32, with the allocator poisoned first."""
+    GT-query scan) and at the small world's, bf16 and float32, with the
+    allocator poisoned first."""
     torch = sm.torch
     from cvc_tpu_torch.ops.kernels import attention, lstm, xent
 
@@ -883,6 +908,34 @@ def train_kernel_phase(sm: Smoke, results: dict) -> None:
                           f"S={S_} live={live_} masked={list(masked)}",
                       bwd_inputs(torch, gen, sm.dev, B, S_, A, H, mask, dt),
                       dname)
+
+        # the small world's widths (phase 6: B 32, S 16, A 64, H 128),
+        # scattered live slots and a fully masked image; the LSTM cells at
+        # R 32, H 128
+        small = small_config()
+        sB, sS, sA, sH = (SMALL_BATCH, small.num_regions,
+                          small.att_hid_size, small.rnn_size)
+        what = f"{dname} B={sB} S={sS} A={sA} H={sH} (small world)"
+        mask = scattered_mask(torch, gen, sm.dev, sB, sS, 13, (4,))
+        args = bwd_inputs(torch, gen, sm.dev, sB, sS, sA, sH, mask, dt)
+        check_bwd(sm, f"fused_additive_attention_bwd {what}", args, dname)
+        check_fwd(sm, f"fused_additive_attention {what}", args[:5], dname,
+                  13)
+        what = f"{dname} R={sB} H={sH} (small world)"
+        a = lstm_inputs(torch, gen, sm.dev, sB, sH, dt)
+        poison(torch, sm.dev)
+        sm.compare(f"fused_lstm_gates {what}", lstm.fused_lstm_gates(*a),
+                   lstm.lstm_gates_plain(*a), dname, ("h", "c"))
+        a = lstm_bwd_inputs(torch, gen, sm.dev, sB, sH, dt)
+        poison(torch, sm.dev)
+        got = lstm.fused_lstm_gates_bwd(*a)
+        want = lstm.lstm_gates_bwd_plain(*a)
+        tols = {n: grad_tol(dname, w) for n, w in zip(("dgates", "dc"), want)}
+        sm.compare(f"fused_lstm_gates_bwd {what}", got, want, dname,
+                   ("dgates", "dc"), tols)
+        for n, w in zip(("dgates", "dc"), want):
+            sm.rejects(f"fused_lstm_gates_bwd {what} {n} with its typical "
+                       f"elements 5% off", perturb_typical(w), w, *tols[n])
 
         # rows 5 and 6: masked cross entropy, N = 64 * 21 and 128 * 21,
         # V = 8704; about 40% of the rows masked (steps after a caption's
@@ -1211,8 +1264,7 @@ def serving_phase(sm: Smoke, smi: str, counts: dict) -> None:
 
     import numpy as np
 
-    from cvc_tpu_torch.ops.kernels import (decoder_step, launch_counts,
-                                           reset_launch_counts, topk_select)
+    from cvc_tpu_torch.ops.kernels import decoder_step, topk_select
     from cvc_tpu_torch.serving import Captioner
 
     base, params, vocab, reqs = serving_setup(torch)
@@ -1232,15 +1284,10 @@ def serving_phase(sm: Smoke, smi: str, counts: dict) -> None:
 
     def drive(cap, label, expect):
         """One path with the counters set to 0 before and read after."""
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        out = cap.caption(reqs, pipeline_depth=1)
-        torch.cuda.synchronize()
-        got = launch_counts()
-        for name, n in got.items():
-            counts[name] = counts.get(name, 0) + n
-        want = {k: expect.get(k, 0) * n_batches for k in got}
-        sm.check(got == want, f"{label} launches {got} (want {want})")
+        out, got = counted(sm, counts,
+                           lambda: cap.caption(reqs, pipeline_depth=1))
+        check_launches(sm, f"{label} caption() of {N_REQUESTS}", [got],
+                       {k: n * n_batches for k, n in expect.items()})
         valid(out, label)
         return out
 
@@ -1452,11 +1499,13 @@ def compare_paths(sm: Smoke, cap_k, cap_p, reqs, label):
 # stacked forward is the per-step one, and its reverse loop calls each
 # backward kernel once for each forward launch. Under remat each step's
 # forward runs again in the backward: every forward kernel twice.
-ARGMAX_LAUNCHES = {"fused_lstm_gates": 4 * STEPS,
-                   "fused_lstm_gates_bwd": 4 * STEPS,
-                   "fused_additive_attention": STEPS,
-                   "fused_additive_attention_bwd": STEPS,
-                   "fused_masked_xent": 2, "fused_masked_xent_bwd": 2}
+def argmax_launches(L: int) -> dict:
+    return {"fused_lstm_gates": 4 * L, "fused_lstm_gates_bwd": 4 * L,
+            "fused_additive_attention": L, "fused_additive_attention_bwd": L,
+            "fused_masked_xent": 2, "fused_masked_xent_bwd": 2}
+
+
+ARGMAX_LAUNCHES = argmax_launches(STEPS)
 GT_LAUNCHES = dict(ARGMAX_LAUNCHES, fused_lstm_gates=2 * STEPS,
                    fused_lstm_gates_bwd=2 * STEPS)
 REMAT_LAUNCHES = dict(ARGMAX_LAUNCHES, fused_lstm_gates=8 * STEPS,
@@ -1500,7 +1549,8 @@ def train_batch(torch, cfg, seed: int) -> dict:
                                 ).astype(np.int32),
         region_mask=np.broadcast_to(live, (B, S)).copy(),
         tokens=tokens, token_mask=token_mask)
-    return {k: torch.from_numpy(v).to(DEVICE) for k, v in arrays.items()}
+    from cvc_tpu_torch.data.pipeline import to_device
+    return to_device(arrays, DEVICE)
 
 
 def train_phase(sm: Smoke, smi: str, counts: dict) -> None:
@@ -1509,7 +1559,6 @@ def train_phase(sm: Smoke, smi: str, counts: dict) -> None:
     import dataclasses
 
     from cvc_tpu_torch.models import core
-    from cvc_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from cvc_tpu_torch.training.optimizer import make_optimizer
     from cvc_tpu_torch.training.step import make_train_step
     from cvc_tpu_torch.training.train_state import TrainState
@@ -1535,19 +1584,11 @@ def train_phase(sm: Smoke, smi: str, counts: dict) -> None:
         gen = torch.Generator(device=sm.dev).manual_seed(3)
         losses, norms, per_step = [], [], []
         for _ in range(n_steps):
-            torch.cuda.synchronize()
-            reset_launch_counts()
-            m = step(state, arrays, gen)
-            torch.cuda.synchronize()
-            got = launch_counts()
+            m, got = counted(sm, counts, lambda: step(state, arrays, gen))
             per_step.append(got)
-            for k, n in got.items():
-                counts[k] = counts.get(k, 0) + n
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
-        want = {k: expect.get(k, 0) for k in per_step[0]}
-        sm.check(all(c == want for c in per_step),
-                 f"{label}: launches per step {per_step[0]} (want {want})")
+        check_launches(sm, f"{label} step", per_step, expect)
         sm.check(all(math.isfinite(x) for x in losses + norms),
                  f"{label}: {n_steps} steps, loss {['%.4f' % x for x in losses]}"
                  f", grad_norm {['%.4f' % x for x in norms]}, all finite")
@@ -1633,32 +1674,58 @@ def compare_scans(sm: Smoke, base, params0, arrays) -> None:
         loss_s, g_s = loss_and_grads(c, params0, arrays)
         loss_o, g_o = loss_and_grads(dataclasses.replace(c, **kw), params0,
                                      arrays)
-        label = f"train float32 {what}: stacked scan vs {other}"
-        rel = abs(loss_s - loss_o) / abs(loss_o)
-        sm.check(rel <= 1e-5, f"{label}: loss {loss_s:.6f} vs {loss_o:.6f}, "
-                              f"rel err {rel:.2e} (want <= 1e-5)")
-        bad, worst = [], 0.0
-        for k, want in g_o.items():
-            got = g_s[k]
-            if got is None or want is None:
-                if (got is None) != (want is None):
-                    bad.append(f"{k}: missing")
-                continue
-            atol, rtol = grad_tol("float32", want)
-            if not sm.within(got, want, atol, rtol):
-                bad.append(k)
-            worst = max(worst, float(((got - want).abs()
-                                      / (atol + rtol * want.abs())).max()))
-            if typical(want) > 0 and sm.within(perturb_typical(want), want,
-                                               atol, rtol):
-                bad.append(f"{k}: a copy 5% off passes")
-        sm.check(not bad, f"{label}: {len(g_o)} gradients at grad_tol, worst "
-                          f"error {worst:.3f} of its tolerance, each 5%-off "
-                          f"copy rejected{'; ' + ', '.join(bad) if bad else ''}")
+        check_loss_and_grads(sm, f"train float32 {what}: stacked scan vs "
+                                 f"{other}", loss_s, g_s, loss_o, g_o)
 
 
-def loss_and_grads(cfg, params0, arrays):
-    """The cyclical loss (a float) and every parameter's gradient."""
+def check_loss_and_grads(sm: Smoke, label, loss, grads, want_loss,
+                         want_grads) -> None:
+    """float32: a loss within 1e-5 relative of `want_loss`, and every
+    gradient at `grad_tol` of the wanted one, which a copy 5% off in its
+    typical elements must fail. A parameter outside both losses has no
+    gradient on either side."""
+    rel = abs(loss - want_loss) / abs(want_loss)
+    sm.check(rel <= 1e-5, f"{label}: loss {loss:.6f} vs {want_loss:.6f}, "
+                          f"rel err {rel:.2e} (want <= 1e-5)")
+    errors, bad = grad_errors(grads, want_grads)
+    bad += [k for k, e in errors.items() if e > 1.0]
+    for k, want in want_grads.items():
+        if want is None or typical(want) == 0:
+            continue
+        atol, rtol = grad_tol("float32", want)
+        if sm.within(perturb_typical(want), want, atol, rtol):
+            bad.append(f"{k}: a copy 5% off passes")
+    worst = max(errors.values(), default=0.0)
+    sm.check(not bad, f"{label}: {len(want_grads)} gradients at grad_tol, "
+                      f"worst error {worst:.3f} of its tolerance, each 5%-off "
+                      f"copy rejected{'; ' + ', '.join(bad) if bad else ''}")
+
+
+def grad_errors(grads, want_grads) -> tuple[dict, list]:
+    """({name: the largest |got - want| / (atol + rtol |want|) at
+    `grad_tol("float32", want)`}, [names missing on one side]). Both sides
+    are moved to want's device and type first."""
+    errors, missing = {}, []
+    for k, want in want_grads.items():
+        got = grads[k]
+        if got is None or want is None:
+            if (got is None) != (want is None):
+                missing.append(f"{k}: missing")
+            continue
+        got = got.to(want.device, want.dtype)
+        if got.shape != want.shape or not bool(got.isfinite().all()):
+            errors[k] = math.inf
+            continue
+        atol, rtol = grad_tol("float32", want)
+        errors[k] = float(((got - want).abs()
+                           / (atol + rtol * want.abs())).max())
+    return errors, missing
+
+
+def loss_and_grads(cfg, params0, arrays, loss_fn=None):
+    """A loss (a float) and every parameter's gradient: `loss_fn(params)`
+    -> (loss, ...), by default the cyclical loss of `arrays` without
+    dropout."""
     import copy
 
     from cvc_tpu_torch.models.cyclical import cyclical_loss
@@ -1666,7 +1733,10 @@ def loss_and_grads(cfg, params0, arrays):
     params = copy.deepcopy(params0)
     for _, x in tree_items(params):
         x.requires_grad_(True)
-    loss, _ = cyclical_loss(params, cfg, arrays)
+    if loss_fn is None:
+        loss, _ = cyclical_loss(params, cfg, arrays)
+    else:
+        loss = loss_fn(params)[0]
     loss.backward()
     return float(loss.detach()), {k: x.grad for k, x in tree_items(params)}
 
@@ -1751,6 +1821,592 @@ def compare_train_paths(sm: Smoke, base, tc, params0, arrays, new_state):
 
 
 # ---------------------------------------------------------------------------
+# Phases 6-9: the data layer, scheduled sampling, SCST and the region
+# transformer, at the c3 widths on the synthetic world
+# ---------------------------------------------------------------------------
+
+SYNTH_IMAGES, SYNTH_SEED = 256, 0            # the world at the c3 widths
+DATA_EPOCHS = 3                              # epochs timed per batching
+XE_EPOCHS = 3                                # epochs of c3-width training
+SMALL_IMAGES, SMALL_BATCH, SMALL_EPOCHS = 64, 32, 30
+SS_PROB, SS_STEPS = 0.25, 3
+SCST_ITERS = 3                               # with xe_weight 0, then one
+SCST_XE_WEIGHT = 0.5                         # with this blend
+TIMED_ITERS = 4                              # timed ss steps / SCST iterations
+
+# kernel launches predicted from the code. A scheduled-sampling step
+# launches what the argmax step does: its decode pass is the per-step scan
+# (2 LSTM cells and one attention a step under autograd, each backward
+# kernel once per forward launch, the attention backward with dv), its
+# reconstruct pass the stacked scan, one cross entropy each; the draws and
+# the in-loop vocabulary product are PyTorch's. An SCST iteration: the
+# sampled decode and the greedy baseline run 2 LSTM cells and one
+# attention a step each, the baseline also the top-k at k 1; the
+# policy-gradient step teacher-forces the sampled tokens through the
+# stacked scan once (its backward kernels once per forward launch, the
+# attention backward without dv) and takes log_softmax in PyTorch; the XE
+# blend adds a cyclical step's launches.
+SS_LAUNCHES = ARGMAX_LAUNCHES
+SCST_LAUNCHES = {"fused_lstm_gates": 6 * STEPS,
+                 "fused_lstm_gates_bwd": 2 * STEPS,
+                 "fused_additive_attention": 3 * STEPS,
+                 "fused_additive_attention_bwd": STEPS,
+                 "fused_topk_lse": STEPS}
+SCST_XE_LAUNCHES = {k: SCST_LAUNCHES.get(k, 0) + ARGMAX_LAUNCHES.get(k, 0)
+                    for k in {**SCST_LAUNCHES, **ARGMAX_LAUNCHES}}
+
+
+def counted(sm: Smoke, counts: dict, fn):
+    """fn() with every launch counter set to 0 just before it and read just
+    after; adds the counts to `counts`. Returns (fn's result, the
+    counts)."""
+    torch = sm.torch
+    from cvc_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = launch_counts()
+    for k, n in got.items():
+        counts[k] = counts.get(k, 0) + n
+    return out, got
+
+
+def check_launches(sm: Smoke, label, per_call: list, expect: dict) -> None:
+    want = {k: expect.get(k, 0) for k in per_call[0]}
+    sm.check(all(c == want for c in per_call),
+             f"{label}: launches per call {per_call[0]} over "
+             f"{len(per_call)} calls (want {want})")
+
+
+def small_config():
+    """The model of the repo's verify notes' small world (phase 6)."""
+    from cvc_tpu_torch.config import ModelConfig
+    return ModelConfig(vocab_size=128, input_encoding_size=64, rnn_size=128,
+                       att_hid_size=64, feat_dim=256, num_regions=16,
+                       seq_length=14, num_classes=24, class_emb_dim=16)
+
+
+def synthetic_world(model_cfg, num_images: int, seed: int):
+    """The synthetic world (data/synthetic.py) at the model's widths."""
+    from cvc_tpu_torch.data.synthetic import make_synthetic_dataset
+    return make_synthetic_dataset(
+        num_images=num_images, num_regions=model_cfg.num_regions,
+        num_frames=model_cfg.num_frames, feat_dim=model_cfg.feat_dim,
+        seq_length=model_cfg.seq_length, split="train", seed=seed)
+
+
+def train_epochs(sm: Smoke, counts: dict, cfg, tc, ds, batch: int,
+                 epochs: int, label: str, expect: dict) -> list:
+    """`epochs` of make_batches batches (shuffled anew each epoch, two
+    assembly threads) through make_train_step on a fresh state, dropout
+    drawn from a seeded generator on the card; the counters read around
+    every step. Returns (per epoch (mean loss, mean attention_entropy),
+    the trained state)."""
+    torch = sm.torch
+    from cvc_tpu_torch.data.pipeline import (make_batches, num_batches,
+                                             to_device)
+    from cvc_tpu_torch.models import core
+    from cvc_tpu_torch.training.optimizer import make_optimizer
+    from cvc_tpu_torch.training.step import make_train_step
+    from cvc_tpu_torch.training.train_state import TrainState
+
+    spe = num_batches(ds, batch)
+    state = TrainState.create(
+        core.init_params(torch.Generator().manual_seed(0), cfg, DEVICE),
+        make_optimizer(tc, spe))
+    step = make_train_step(cfg, tc, spe, device=DEVICE)
+    gen = torch.Generator(device=sm.dev).manual_seed(5)
+    curve, per_step, finite = [], [], True
+    t0 = time.perf_counter()
+    for epoch in range(epochs):
+        losses, ents = [], []
+        for b in make_batches(ds, cfg, batch, seed=epoch, num_workers=2):
+            arrays = to_device(b.model_inputs(), DEVICE)
+            m, got = counted(sm, counts, lambda: step(state, arrays, gen))
+            per_step.append(got)
+            losses.append(m["loss"])
+            ents.append(m["attention_entropy"])
+        loss = float(torch.stack(losses).mean())
+        ent = float(torch.stack(ents).mean())
+        finite &= math.isfinite(loss) and math.isfinite(ent)
+        curve.append((loss, ent))
+    print(f"{label}: {epochs} epochs of {spe} batches of {batch} in "
+          f"{time.perf_counter() - t0:.1f} s; mean loss, attention_entropy "
+          f"a epoch: {', '.join(f'{a:.4f}/{e:.4f}' for a, e in curve)}",
+          flush=True)
+    check_launches(sm, f"{label} step", per_step, expect)
+    sm.check(finite, f"{label}: epoch means finite")
+    return curve, state
+
+
+def data_phase(sm: Smoke, smi: str, counts: dict):
+    """Phase 6: the data layer and training on the synthetic world. Builds
+    the world at the c3 widths (timed), times make_batches a batch (inline,
+    one assembly thread, four) and to_device, trains the c3 config's f32
+    kernel path for XE_EPOCHS epochs (the last epoch's mean loss below the
+    first's), then the small world of the repo's verify notes: its
+    kernel path's loss and gradients against the plain path's at seeded
+    weights (`grad_tol`, the 5%-off copies rejected), and SMALL_EPOCHS
+    epochs through the kernels (the loss falls by 3 nats or more, the
+    attention entropy to under half). Returns (c3 config, the
+    world, the parameters the c3 training left)."""
+    torch = sm.torch
+    import dataclasses
+
+    from cvc_tpu_torch.config import TrainConfig
+    from cvc_tpu_torch.data.pipeline import make_batches, to_device
+    from cvc_tpu_torch.models import core
+
+    c3 = c3_config()
+    base = c3.model
+    t0 = time.perf_counter()
+    ds = synthetic_world(base, SYNTH_IMAGES, SYNTH_SEED)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    print(f"data: synthetic world, {len(ds)} images of {base.num_regions} "
+          f"slots x {base.feat_dim} floats, {len(ds.vocab)} words, built in "
+          f"{build_ms:.1f} ms (host) on {smi}", flush=True)
+    for label, kw in (("inline", dict(prefetch=0)),
+                      ("1 thread", dict(prefetch=2, num_workers=1)),
+                      ("4 threads", dict(prefetch=4, num_workers=4))):
+        n, t0 = 0, time.perf_counter()
+        for epoch in range(DATA_EPOCHS):
+            for _ in make_batches(ds, base, TRAIN_BATCH, seed=epoch, **kw):
+                n += 1
+        ms = (time.perf_counter() - t0) * 1e3 / n
+        print(f"data: make_batches {label}: {ms:.2f} ms a batch of "
+              f"{TRAIN_BATCH} (host, {n} batches) on {smi}", flush=True)
+    b = next(make_batches(ds, base, TRAIN_BATCH, prefetch=0))
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        to_device(b.model_inputs(), DEVICE)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"data: to_device {statistics.median(times):.2f} ms a batch "
+          f"(median of 5) on {smi}", flush=True)
+
+    curve, xe_state = train_epochs(
+        sm, counts, base, c3.train, ds, TRAIN_BATCH, XE_EPOCHS,
+        "data: c3 f32 kernel path on the synthetic world", ARGMAX_LAUNCHES)
+    sm.check(curve[-1][0] < curve[0][0],
+             f"data: c3 synthetic-world mean loss falls over {XE_EPOCHS} "
+             f"epochs ({curve[0][0]:.4f} -> {curve[-1][0]:.4f})")
+
+    # the small world of the repo's verify notes: its kernel path against
+    # the plain path at seeded weights on one of its batches, then trained
+    small = small_config()
+    sds = synthetic_world(small, SMALL_IMAGES, 0)
+    sm.check(sds.vocab.padded_size(128) == small.vocab_size,
+             f"data: the small world's {len(sds.vocab)} words pad to "
+             f"{small.vocab_size}")
+    cfg = dataclasses.replace(small, drop_prob_lm=0.0, use_pallas=True)
+    params0 = core.init_params(torch.Generator().manual_seed(0), small,
+                               DEVICE)
+    arrays = to_device(next(make_batches(sds, small, SMALL_BATCH, prefetch=0)
+                            ).model_inputs(), DEVICE)
+    check_loss_and_grads(
+        sm, "data: small world f32 kernel path vs plain path (per-step "
+            "scan), seeded weights",
+        *loss_and_grads(cfg, params0, arrays),
+        *loss_and_grads(dataclasses.replace(cfg, use_pallas=False,
+                                            stacked_grad=False),
+                        params0, arrays))
+    small_tc = TrainConfig(learning_rate=3e-3, grad_clip=0.0,
+                           learning_rate_decay_start=-1)
+    curve, _ = train_epochs(sm, counts, small, small_tc, sds, SMALL_BATCH,
+                            SMALL_EPOCHS, "data: small world f32 kernel path",
+                            argmax_launches(small.max_tokens - 1))
+    (l0, e0), (l1, e1) = curve[0], curve[-1]
+    print(f"data: small world curve (epoch: loss/attention_entropy): "
+          + ", ".join(f"{i + 1}: {a:.3f}/{e:.3f}" for i, (a, e)
+                      in enumerate(curve) if i in (0, 4, 9, 19, 29)),
+          flush=True)
+    sm.check(l0 - l1 >= 3.0, f"data: small world loss falls by >= 3 nats "
+                             f"over {SMALL_EPOCHS} epochs ({l0:.4f} -> "
+                             f"{l1:.4f}, {l0 - l1:.4f})")
+    sm.check(e1 < 0.5 * e0, f"data: small world attention_entropy under "
+                            f"half its start ({e0:.4f} -> {e1:.4f})")
+    xe_params = detached_copy(xe_state.params)
+    return c3, ds, xe_params
+
+
+def detached_copy(params):
+    """A copy of a parameter tree with no gradient attached."""
+    from cvc_tpu_torch.models import core
+    return core._map(params, lambda x: x.detach().clone())
+
+
+def ss_phase(sm: Smoke, smi: str, counts: dict, c3, ds) -> None:
+    """Phase 7: scheduled sampling at the c3 widths, f32, the kernel path,
+    on a batch of the synthetic world: SS_STEPS steps of make_train_step
+    at ss_prob SS_PROB (losses finite, the counters read after each step),
+    ms a step against the teacher-forced step in turns; at ss_prob 0 the
+    loss and gradients against the teacher-forced per-step scan's, and at
+    ss_prob 1 against the plain path's teacher-forced on the words the
+    kernel path fed (recorded by wrapping core.embed_tokens, which the
+    loop calls once a step; the plain side is cyclical_loss with
+    core.decode_scheduled_sampling swapped for the teacher-forced scan on
+    those words), at `grad_tol` with the 5%-off copies rejected."""
+    torch = sm.torch
+    import copy
+    import dataclasses
+
+    from cvc_tpu_torch.data.pipeline import (make_batches, num_batches,
+                                             to_device)
+    from cvc_tpu_torch.models import core
+    from cvc_tpu_torch.models.cyclical import cyclical_loss
+    from cvc_tpu_torch.training.optimizer import make_optimizer
+    from cvc_tpu_torch.training.step import make_train_step
+    from cvc_tpu_torch.training.train_state import TrainState
+
+    base = c3.model
+    tc = dataclasses.replace(c3.train, scheduled_sampling_start=0)
+    spe = num_batches(ds, TRAIN_BATCH)
+    b = next(make_batches(ds, base, TRAIN_BATCH, seed=7, prefetch=0))
+    arrays = to_device(b.model_inputs(), DEVICE)
+    params0 = core.init_params(torch.Generator().manual_seed(0), base, DEVICE)
+    state = TrainState.create(copy.deepcopy(params0),
+                              make_optimizer(tc, spe))
+    step = make_train_step(base, tc, spe, device=DEVICE)
+    gen = torch.Generator(device=sm.dev).manual_seed(6)
+    losses, per_step = [], []
+    for _ in range(SS_STEPS):
+        m, got = counted(sm, counts,
+                         lambda: step(state, arrays, gen, SS_PROB))
+        per_step.append(got)
+        losses.append(float(m["loss"]))
+    label = f"ss f32 kernel path, ss_prob {SS_PROB}"
+    check_launches(sm, label, per_step, SS_LAUNCHES)
+    sm.check(all(math.isfinite(x) for x in losses),
+             f"{label}: {SS_STEPS} steps, loss "
+             f"{['%.4f' % x for x in losses]}, all finite")
+    times = {SS_PROB: [], None: []}
+    for ss in (SS_PROB, None, None, SS_PROB):     # the two paths in turns
+        for _ in range(TIMED_ITERS // 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, arrays, gen, ss)
+            torch.cuda.synchronize()
+            times[ss].append((time.perf_counter() - t0) * 1e3)
+    for ss, t in times.items():
+        what = (f"scheduled-sampling step (ss_prob {ss})" if ss is not None
+                else "teacher-forced step (stacked scan)")
+        print(f"ss: {what} B={TRAIN_BATCH}: {statistics.median(t):.2f} ms "
+              f"(median of {len(t)}, in turns; range {min(t):.2f}-"
+              f"{max(t):.2f}) on {smi}", flush=True)
+    profile_report(sm, lambda: step(state, arrays, gen, SS_PROB),
+                   f"one float32 scheduled-sampling step of {TRAIN_BATCH} "
+                   f"(ss_prob {SS_PROB})")
+
+    cfg = dataclasses.replace(base, drop_prob_lm=0.0, use_pallas=True)
+
+    def ss_loss(c, prob):
+        return lambda p: cyclical_loss(
+            p, c, arrays, ss_prob=prob,
+            generator=torch.Generator(device=sm.dev).manual_seed(8))
+
+    check_loss_and_grads(
+        sm, "ss f32 kernel path at ss_prob 0 vs the teacher-forced "
+            "per-step scan",
+        *loss_and_grads(cfg, params0, arrays, ss_loss(cfg, 0.0)),
+        *loss_and_grads(dataclasses.replace(cfg, stacked_grad=False),
+                        params0, arrays))
+    fed, real = [], core.embed_tokens
+
+    def recording(params, tokens, dtype=torch.float32):
+        if tokens.dim() == 1:                # the loop's one step
+            fed.append(tokens)
+        return real(params, tokens, dtype)
+
+    core.embed_tokens = recording
+    try:
+        got = loss_and_grads(cfg, params0, arrays, ss_loss(cfg, 1.0))
+    finally:
+        core.embed_tokens = real
+    words = torch.stack(fed, 1)
+    gt = arrays["tokens"][:, :-1]
+    sampled = float((words[:, 1:] != gt[:, 1:]).float().mean())
+    sm.check(bool((words[:, 0] == gt[:, 0]).all()) and sampled > 0.9,
+             f"ss at ss_prob 1: step 0 fed BOS, {sampled:.4f} of the later "
+             f"inputs differ from the GT words (sampled)")
+    # the plain side: the same cyclical loss with the scheduled-sampling
+    # scan swapped for the teacher-forced scan fed those words
+
+    def fed_decode(params, c, v_enc, keys, v_global, _tokens_in, rm, *_):
+        return core.decode(params, c, v_enc, keys, v_global,
+                           core.embed_tokens(params, words,
+                                             core.compute_dtype(c)), rm)
+
+    plain = dataclasses.replace(cfg, use_pallas=False, stacked_grad=False)
+    real_ss = core.decode_scheduled_sampling
+    core.decode_scheduled_sampling = fed_decode
+    try:
+        want = loss_and_grads(plain, params0, arrays, ss_loss(plain, 1.0))
+    finally:
+        core.decode_scheduled_sampling = real_ss
+    check_loss_and_grads(
+        sm, "ss f32 kernel path at ss_prob 1 vs the plain path "
+            "teacher-forced on the words it fed", *got, *want)
+
+
+def scst_phase(sm: Smoke, smi: str, counts: dict, c3, ds, params0) -> None:
+    """Phase 8: SCST at the c3 widths, f32, B 64 on the synthetic world,
+    from `params0`, the parameters phase 6's XE epochs left (the lineage
+    runs SCST after XE; from random weights every word is outside the
+    world's vocabulary and every reward 0): SCST_ITERS iterations of
+    scst_train_batch with xe_weight 0 and one with SCST_XE_WEIGHT (rewards
+    finite, sampled and greedy tokens in range with PAD after the first
+    EOS, the counters read around each iteration), ms an iteration split into sample, reward (host) and
+    update, and on one fixed set of sampled tokens and advantages the
+    kernel path's policy-gradient loss and gradients against the plain
+    path's at `grad_tol` (at the seeded random weights), and at the
+    XE-trained weights each path's gradients against a float64 CPU
+    reference (the kernel path within twice the plain path's distance, a
+    5%-off copy and a bf16 run of the kernel path beyond it)."""
+    torch = sm.torch
+    import copy
+    import dataclasses
+
+    import numpy as np
+
+    from cvc_tpu_torch.data.pipeline import (make_batches, num_batches,
+                                             to_device)
+    from cvc_tpu_torch.data.vocab import EOS_ID, PAD_ID
+    from cvc_tpu_torch.models import core
+    from cvc_tpu_torch.training.optimizer import make_optimizer
+    from cvc_tpu_torch.training.scst import (ScstRewarder, make_scst_sampler,
+                                             make_scst_step,
+                                             policy_gradient_loss,
+                                             scst_train_batch)
+    from cvc_tpu_torch.training.train_state import TrainState
+
+    base, tc = c3.model, c3.train
+    spe = num_batches(ds, TRAIN_BATCH)
+    state = TrainState.create(copy.deepcopy(params0),
+                              make_optimizer(tc, spe))
+    sampler = make_scst_sampler(base, base.seq_length, device=DEVICE)
+    steps = {w: make_scst_step(base, tc, spe, xe_weight=w, device=DEVICE)
+             for w in (0.0, SCST_XE_WEIGHT)}
+    t0 = time.perf_counter()
+    rewarder = ScstRewarder({ex.image_id: ex.captions for ex in ds.examples})
+    print(f"scst: rewarder over {len(ds)} images' references in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms (host)", flush=True)
+    seen = []
+
+    def recording_sampler(*a):
+        out = sampler(*a)
+        seen.append(out)
+        return out
+
+    g_sample = torch.Generator(device=sm.dev).manual_seed(9)
+    g_step = torch.Generator(device=sm.dev).manual_seed(10)
+    batches = list(make_batches(ds, base, TRAIN_BATCH, seed=11, prefetch=0))
+    per = {0.0: [], SCST_XE_WEIGHT: []}
+    for i, w in enumerate([0.0] * SCST_ITERS + [SCST_XE_WEIGHT]):
+        b = batches[i % len(batches)]
+        arrays = to_device(b.model_inputs(), DEVICE)
+        m, got = counted(sm, counts, lambda: scst_train_batch(
+            state, arrays, b, ds, recording_sampler, steps[w], rewarder,
+            g_sample, g_step))
+        per[w].append(got)
+        vals = {k: float(v) for k, v in m.items()}
+        sm.check(all(math.isfinite(v) for v in vals.values()),
+                 f"scst iteration {i + 1}, xe_weight {w}: "
+                 + ", ".join(f"{k} {v:.4f}" for k, v in vals.items())
+                 + ", all finite")
+    check_launches(sm, "scst iteration, xe_weight 0", per[0.0],
+                   SCST_LAUNCHES)
+    check_launches(sm, f"scst iteration, xe_weight {SCST_XE_WEIGHT}",
+                   per[SCST_XE_WEIGHT], SCST_XE_LAUNCHES)
+    bad = 0
+    for out in seen:
+        for name in ("sample_tokens", "greedy_tokens"):
+            t = out[name].cpu().numpy()
+            bad += int(((t < 0) | (t >= base.vocab_size)).sum())
+            eos = np.cumsum(t == EOS_ID, axis=1) - (t == EOS_ID)
+            bad += int(((eos > 0) & (t != PAD_ID)).sum())
+    n_tok = sum(o["sample_tokens"].numel() * 2 for o in seen)
+    sm.check(bad == 0, f"scst: {n_tok} sampled and greedy tokens in "
+                       f"[0, {base.vocab_size}), PAD after the first EOS")
+
+    # ms an iteration, split: the sampler (both decodes), the rewards on
+    # the host (the tokens' copy included), the update
+    arrays = to_device(batches[0].model_inputs(), DEVICE)
+    b = batches[0]
+    image_ids = [ds.get(int(i)).image_id for i in b.example_idx]
+    refs = {ds.get(int(i)).image_id: ds.get(int(i)).captions
+            for i in b.example_idx}
+    split = {"sample": [], "reward": [], "update": []}
+    for _ in range(TIMED_ITERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sampler(state.params, arrays, g_sample)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        toks = torch.stack([out["sample_tokens"],
+                            out["greedy_tokens"]]).cpu().numpy()
+        r_s = rewarder.rewards(ds.vocab, toks[0], image_ids, refs)
+        r_g = rewarder.rewards(ds.vocab, toks[1], image_ids, refs)
+        adv = torch.from_numpy(r_s - r_g).to(sm.dev)
+        t2 = time.perf_counter()
+        steps[0.0](state, arrays, out["sample_tokens"], adv, g_step)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for k, t in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
+            split[k].append(t * 1e3)
+    total = [sum(x) for x in zip(*split.values())]
+    print(f"scst: iteration B={TRAIN_BATCH}, xe_weight 0: "
+          f"{statistics.median(total):.2f} ms (median of {TIMED_ITERS}): "
+          + ", ".join(f"{k} {statistics.median(v):.2f}"
+                      for k, v in split.items())
+          + f" ms on {smi}", flush=True)
+    profile_report(sm, lambda: scst_train_batch(
+        state, arrays, b, ds, sampler, steps[0.0], rewarder, g_sample,
+        g_step), f"one SCST iteration of {TRAIN_BATCH}, xe_weight 0")
+
+    # the policy-gradient loss and gradients on fixed sampled tokens and
+    # advantages, kernel path against plain path, at the seeded random
+    # weights every other gradient check of this script uses
+    cfg = dataclasses.replace(base, drop_prob_lm=0.0, use_pallas=True)
+    plain = dataclasses.replace(cfg, use_pallas=False, stacked_grad=False)
+    toks = seen[0]["sample_tokens"]
+    adv = torch.randn((TRAIN_BATCH,), device=sm.dev, generator=torch.Generator(
+        device=sm.dev).manual_seed(12))
+    arrays = to_device(batches[0].model_inputs(), DEVICE)
+
+    def pg(c, a=arrays, t=toks, v=adv):
+        return lambda p: policy_gradient_loss(p, c, a, t, v)
+
+    random0 = core.init_params(torch.Generator().manual_seed(0), base, DEVICE)
+    check_loss_and_grads(
+        sm, "scst f32 policy-gradient loss, kernel path (stacked scan) vs "
+            "plain path (per-step scan), fixed tokens and advantages",
+        *loss_and_grads(cfg, random0, arrays, pg(cfg)),
+        *loss_and_grads(plain, random0, arrays, pg(plain)))
+    # the same at the XE-trained weights, against a float64 reference: most
+    # of the recurrent matrices' gradient elements are then orders of
+    # magnitude below the largest, so grad_tol is close to rtol 1e-4 alone
+    # and two float32 summation orders need not meet it; each path's
+    # distance from float64 says whether the kernels add error. Two
+    # controls show that the factor 2 rejects a wrong path: the kernel
+    # path's gradients with their typical elements 5% off, and the kernel
+    # path in bf16; each must read more than twice the plain path.
+    paths = (("kernel path", cfg), ("plain path", plain),
+             ("bf16 kernel path (control)",
+              dataclasses.replace(cfg, dtype="bfloat16")))
+    grads = {name: loss_and_grads(c, params0, arrays, pg(c))[1]
+             for name, c in paths}
+    grads["kernel path 5% off (control)"] = {
+        k: None if g is None else perturb_typical(g)
+        for k, g in grads["kernel path"].items()}
+    cpu = {k: (v.double() if v.is_floating_point() else v).cpu()
+           for k, v in arrays.items()}
+    ref = float64_loss_and_grads(
+        cfg, params0, lambda c: pg(c, cpu, toks.cpu(), adv.double().cpu()))[1]
+    worst = {}
+    for name, g in (*grads.items(), ("kernel vs plain", None)):
+        e, _ = (grad_errors(grads["kernel path"], grads["plain path"])
+                if g is None else grad_errors(g, ref))
+        k = max(e, key=e.get)
+        worst[name] = (k, e[k])
+    print("scst: policy-gradient gradients at the XE-trained weights, worst "
+          "error in units of grad_tol: " + ", ".join(
+              f"{n} {'vs float64 ' if n != 'kernel vs plain' else ''}"
+              f"{e:.3f} ({k})" for n, (k, e) in worst.items()), flush=True)
+    k_err, p_err = worst["kernel path"][1], worst["plain path"][1]
+    sm.check(k_err <= 2.0 * p_err,
+             f"scst: at the XE-trained weights the kernel path is no further "
+             f"from float64 than twice the plain path ({k_err:.3f} vs "
+             f"{p_err:.3f} of grad_tol)")
+    for name in grads:
+        if name.endswith("(control)"):
+            sm.check(worst[name][1] > 2.0 * p_err,
+                     f"scst: the {name} is further from float64 than twice "
+                     f"the plain path ({worst[name][1]:.3f} vs {p_err:.3f} "
+                     f"of grad_tol): the factor 2 rejects it")
+
+
+def float64_loss_and_grads(cfg, params0, loss_fn_of):
+    """A loss and its gradients in float64 on the CPU, through the plain
+    per-step path: `loss_fn_of(cfg64)` -> fn(params) for the float64
+    copy of cfg. The float32 vocabulary product (`core.matmul_f32`) is
+    swapped for a plain one while it runs."""
+    import dataclasses
+
+    from cvc_tpu_torch.models import core
+    cfg64 = dataclasses.replace(cfg, use_pallas=False, pallas_select=False,
+                                stacked_grad=False, dtype="float64")
+    p64 = core._map(params0, lambda x: x.detach().double().cpu())
+    real = core.matmul_f32
+    core.DTYPES["float64"] = p64["logit"]["b"].dtype
+    core.matmul_f32 = lambda x, w: x @ w
+    try:
+        return loss_and_grads(cfg64, p64, None, loss_fn_of(cfg64))
+    finally:
+        core.matmul_f32 = real
+        del core.DTYPES["float64"]
+
+
+def obj_interact_phase(sm: Smoke, smi: str, counts: dict, c3) -> None:
+    """Phase 9: the region transformer, the c3 config with obj_interact
+    (the layers and heads its json names): one f32 train step through the
+    kernels (counted), its loss and gradients against the plain path's at
+    `grad_tol`, and beam-5 serving through Captioner.build, the kernel
+    path's f32 tokens against the plain path's (>= 98% equal)."""
+    torch = sm.torch
+    import copy
+    import dataclasses
+
+    from cvc_tpu_torch.data.vocab import Vocabulary
+    from cvc_tpu_torch.models import core
+    from cvc_tpu_torch.serving import Captioner
+    from cvc_tpu_torch.training.optimizer import make_optimizer
+    from cvc_tpu_torch.training.step import make_train_step
+    from cvc_tpu_torch.training.train_state import TrainState
+
+    base = dataclasses.replace(c3.model, obj_interact=True)
+    params0 = core.init_params(torch.Generator().manual_seed(0), base, DEVICE)
+    arrays = train_batch(torch, base, seed=13)
+    label = (f"obj_interact ({base.obj_interact_layers} layer, "
+             f"{base.obj_interact_heads} heads)")
+    state = TrainState.create(copy.deepcopy(params0),
+                              make_optimizer(c3.train, STEPS_PER_EPOCH))
+    step = make_train_step(base, c3.train, STEPS_PER_EPOCH, device=DEVICE)
+    gen = torch.Generator(device=sm.dev).manual_seed(3)
+    m, got = counted(sm, counts, lambda: step(state, arrays, gen))
+    check_launches(sm, f"{label} f32 train step", [got], ARGMAX_LAUNCHES)
+    sm.check(math.isfinite(float(m["loss"])), f"{label} f32 train step: loss "
+                                              f"{float(m['loss']):.4f}")
+    cfg = dataclasses.replace(base, drop_prob_lm=0.0, use_pallas=True)
+    check_loss_and_grads(
+        sm, f"{label} f32 kernel path vs plain path (per-step scan)",
+        *loss_and_grads(cfg, params0, arrays),
+        *loss_and_grads(dataclasses.replace(cfg, use_pallas=False,
+                                            stacked_grad=False),
+                        params0, arrays))
+
+    vocab = Vocabulary([f"w{i}" for i in range(base.vocab_size - 8)])
+    reqs = make_requests(base, N_REQUESTS, seed=14)
+    cap = Captioner.build(params0, base, vocab, beam_size=BEAM,
+                          batch_size=BATCH, device=DEVICE)
+    out, got = counted(sm, counts, lambda: cap.caption(reqs))
+    n_batches = math.ceil(N_REQUESTS / BATCH)
+    check_launches(sm, f"{label} beam-5 f32 serving", [got], {
+        "fused_beam_decoder_core": STEPS * n_batches,
+        "fused_topk_lse": STEPS * n_batches})
+    sm.check(len(out) == N_REQUESTS and all(math.isfinite(r["score"])
+                                            for r in out),
+             f"{label} beam-5: {len(out)} captions, finite scores")
+    compare_paths(sm, cap, Captioner.build(
+        params0, dataclasses.replace(base, use_pallas=False,
+                                     pallas_select=False),
+        vocab, beam_size=BEAM, batch_size=BATCH, device=DEVICE),
+        reqs, f"{label} beam-5")
+
+
+# ---------------------------------------------------------------------------
 
 KERNEL_ROWS = [
     ("fused_lstm_gates", "cvc_tpu_torch/csrc/lstm.cu",
@@ -1815,6 +2471,10 @@ def main(argv: list[str]) -> int:
     counts: dict = {}
     serving_phase(sm, smi, counts)
     train_phase(sm, smi, counts)
+    c3, ds, xe_params = data_phase(sm, smi, counts)
+    ss_phase(sm, smi, counts, c3, ds)
+    scst_phase(sm, smi, counts, c3, ds, xe_params)
+    obj_interact_phase(sm, smi, counts, c3)
 
     kernels = []
     for name, source, replaces in KERNEL_ROWS:
@@ -1826,7 +2486,7 @@ def main(argv: list[str]) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
         sm.check(counts.get(name, 0) > 0,
-                 f"{name} launched on the serving or training path")
+                 f"{name} launched on the main paths")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

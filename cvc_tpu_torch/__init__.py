@@ -6,9 +6,13 @@ kernel on its path with a CUDA kernel written for Hopper (`csrc/`), built
 with nvcc at first use. It imports nothing from `cvc_tpu`.
 
 Ported so far: serving (`serving.Captioner` with beam search and greedy
-decoding) and the cyclical train step (`training.step.make_train_step`:
-decode -> localize -> reconstruct -> masked XE -> clip + Adam). Entry points
-run on CUDA unless the caller passes device="cpu".
+decoding), the cyclical train step (`training.step.make_train_step`:
+decode -> localize -> reconstruct -> masked XE -> clip + Adam, with
+scheduled sampling), the data layer (`data/`: the synthetic world, the HDF5
++ JSON readers, the batch pipeline; `config.config_from_args`), temperature
+sampling and SCST (`training.scst`), and the region transformer
+(`models.transformer`, `ModelConfig.obj_interact`). Entry points run on
+CUDA unless the caller passes device="cpu".
 """
 
 __version__ = "0.1.0"

@@ -1,1 +1,2 @@
-"""Request packing and the vocabulary of the port."""
+"""The data layer of the port: vocabulary, datasets, the synthetic world
+and the batch pipeline."""

@@ -1,6 +1,6 @@
-"""Vocabulary: word<->id mapping and decode_sequence (the port's own copy of
-what serving needs from `cvc_tpu/data/vocab.py`; same ids, same file
-format; vocabulary building waits for the training slice).
+"""Vocabulary: word<->id mapping, tokenization, encoding and
+decode_sequence (the port's own copy of `cvc_tpu/data/vocab.py`; same ids,
+same file format, same encoded buffers).
 
 Fixed special ids:
   PAD=0  (also the filler after EOS)
@@ -12,7 +12,9 @@ Fixed special ids:
 from __future__ import annotations
 
 import json
-from typing import Sequence
+import re
+from collections import Counter
+from typing import Iterable, Sequence
 
 import numpy as np
 
@@ -21,6 +23,14 @@ BOS_ID = 1
 EOS_ID = 2
 UNK_ID = 3
 SPECIALS = ["<pad>", "<bos>", "<eos>", "<unk>"]
+
+_WORD_RE = re.compile(r"[a-z0-9']+")
+
+
+def simple_tokenize(text: str) -> list[str]:
+    """Lowercase word tokenizer of vocabulary building and encoding:
+    punctuation is dropped."""
+    return _WORD_RE.findall(text.lower())
 
 
 class Vocabulary:
@@ -40,6 +50,19 @@ class Vocabulary:
         return ((n + multiple - 1) // multiple) * multiple
 
     @staticmethod
+    def build(captions: Iterable[str], min_count: int = 5) -> "Vocabulary":
+        """The words seen at least min_count times, sorted."""
+        counts: Counter = Counter()
+        for c in captions:
+            counts.update(simple_tokenize(c))
+        words = sorted(w for w, n in counts.items() if n >= min_count)
+        return Vocabulary(words)
+
+    def save(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump({"itow": self.itow}, f)
+
+    @staticmethod
     def load(path: str) -> "Vocabulary":
         with open(path) as f:
             raw = json.load(f)
@@ -51,6 +74,18 @@ class Vocabulary:
         # reference-style {id(str): word} dicts, 1-indexed
         items = sorted((int(k), v) for k, v in raw.items())
         return Vocabulary([v for _, v in items if v not in SPECIALS])
+
+    def encode(self, text: str, seq_length: int) -> tuple[np.ndarray, int]:
+        """Caption -> fixed-length ids [BOS, w1..wk, EOS, PAD...] of length
+        seq_length + 2, and k + 1: the count of supervised tokens (the
+        words and EOS)."""
+        words = simple_tokenize(text)[:seq_length]
+        ids = [self.wtoi.get(w, UNK_ID) for w in words]
+        buf = np.full((seq_length + 2,), PAD_ID, dtype=np.int32)
+        buf[0] = BOS_ID
+        buf[1:1 + len(ids)] = ids
+        buf[1 + len(ids)] = EOS_ID
+        return buf, len(ids) + 1
 
     def decode_sequence(self, ids: np.ndarray) -> list[str]:
         """Id matrix [B, L] -> sentences, stopping at EOS/PAD."""

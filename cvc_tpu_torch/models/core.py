@@ -26,9 +26,12 @@ from functools import partial
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from cvc_tpu_torch.models.transformer import (init_transformer_params,
+                                              region_self_attention)
 from cvc_tpu_torch.ops import dispatch
 from cvc_tpu_torch.ops.primitives import (additive_attention_scores,
-                                          lstm_cell, masked_softmax)
+                                          lstm_cell, masked_softmax,
+                                          sample_categorical)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -45,9 +48,6 @@ def init_params(generator: torch.Generator, cfg, device="cuda") -> dict:
     """The full parameter tree for ModelConfig `cfg`, float32, with the JAX
     package's shapes and initializer families (values differ: they come
     from `generator`, a CPU torch.Generator)."""
-    if cfg.obj_interact:
-        raise NotImplementedError("obj_interact: the region transformer is "
-                                  "not ported yet")
     device = dispatch.resolve_device(device)
     H, E, A = cfg.rnn_size, cfg.input_encoding_size, cfg.att_hid_size
     V, D = cfg.vocab_size, cfg.feat_dim
@@ -99,12 +99,19 @@ def init_params(generator: torch.Generator, cfg, device="cuda") -> dict:
                                 "b": torch.zeros(H)}
     if cfg.num_frames > 1:
         params["frame_emb"] = {"table": uniform((cfg.num_frames, H), 0.05)}
+    if cfg.obj_interact:
+        params["obj_interact"] = init_transformer_params(
+            generator, cfg.obj_interact_layers, H, cfg.obj_interact_heads)
     return _map(params, lambda x: x.to(device))
 
 
 def _map(tree, fn):
+    """fn on every leaf of nested dicts and lists (the region transformer
+    keeps its layers in a list)."""
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(v, fn) for v in tree]
     return fn(tree)
 
 
@@ -152,9 +159,9 @@ def encode_regions(params, cfg, feats, box_geom, region_cls, region_mask,
         x = x + params["frame_emb"]["table"][frame_idx].to(dtype)[None]
     v_enc = torch.relu(x) * region_mask[..., None].to(dtype)
 
-    if cfg.obj_interact:
-        raise NotImplementedError("obj_interact: the region transformer is "
-                                  "not ported yet")
+    if cfg.obj_interact and "obj_interact" in params:
+        v_enc = region_self_attention(params["obj_interact"], v_enc,
+                                      region_mask, cfg.obj_interact_heads)
 
     keys = v_enc @ params["attention"]["wv"].to(dtype)
 
@@ -345,6 +352,52 @@ def decode(params, cfg, v_enc, keys, v_global, emb_seq, region_mask,
             weights=weights)
         hs.append(h)
         alphas.append(alpha)
+    return torch.stack(hs, 1), torch.stack(alphas, 1), carry
+
+
+def decode_scheduled_sampling(params, cfg, v_enc, keys, v_global, tokens_in,
+                              region_mask, ss_prob, generator):
+    """Teacher-forced decode with scheduled sampling: from step 1 on, each
+    row's input word is, with probability ss_prob (one uniform draw a row
+    a step), a word sampled from the previous step's softmax (one
+    categorical draw a row, `sample_categorical`), else the GT word; step
+    0 always takes the GT word (BOS). Both draws come from `generator`.
+    The next input depends on this step's logits, so the vocabulary
+    product runs inside the loop (without a gradient: the sampled word is
+    an integer), and the loop is the per-step scan, one `decoder_step` a
+    step under autograd, with the kernels where `use_pallas_train_scan`
+    resolves so; the stacked scan needs every input before it starts.
+
+    tokens_in [B, L]: the GT input tokens (BOS..w_{L-1}). ss_prob: a
+    float or a 0-d tensor on the tensors' device.
+    Returns (h_seq [B, L, H], alphas [B, L, S] float32, final carry)."""
+    B, L = tokens_in.shape
+    dtype = keys.dtype
+    H, E = cfg.rnn_size, cfg.input_encoding_size
+    al = params["att_lstm"]
+    _, w_vg, w_e = _split_wx_att(al["wx"].to(dtype), E, H)
+    vg_pre = v_global @ w_vg + al["b"].to(dtype)
+    weights = step_weights(params, cfg, dtype)
+    carry = initial_state(B, H, dtype, keys.device)
+    gt_words = tokens_in.unbind(1)
+    sampled = None
+    hs, alphas = [], []
+    for t in range(L):
+        word = gt_words[t]
+        if t > 0:
+            use = torch.rand((B,), generator=generator,
+                             device=keys.device) < ss_prob
+            word = torch.where(use, sampled, word)
+        pre1 = embed_tokens(params, word, dtype) @ w_e + vg_pre
+        carry, (h, alpha) = decoder_step(
+            params, cfg, carry, {"pre1": pre1}, v_enc, keys, region_mask,
+            weights=weights)
+        hs.append(h)
+        alphas.append(alpha)
+        if t + 1 < L:
+            with torch.no_grad():
+                sampled = sample_categorical(logits(params, h), generator
+                                             ).to(word.dtype)
     return torch.stack(hs, 1), torch.stack(alphas, 1), carry
 
 

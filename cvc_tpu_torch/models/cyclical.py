@@ -44,16 +44,24 @@ def _encode(params, cfg, arrays):
 
 
 def decode_teacher_forced(params, cfg, arrays, generator=None,
-                          train: bool = False):
+                          train: bool = False, ss_prob=None):
     """Teacher-forced decode pass: inputs tokens[:, :-1], targets
     tokens[:, 1:], L = T - 1. Dropout on the LSTM outputs when `train` and
-    a generator is given. Returns (logits [B, L, V] float32, alphas
-    [B, L, S], h_seq, (v_enc, keys, v_global))."""
+    a generator is given. With ss_prob (a float or 0-d tensor) and a
+    generator, the inputs are scheduled-sampled
+    (`core.decode_scheduled_sampling`). Returns (logits [B, L, V] float32,
+    alphas [B, L, S], h_seq, (v_enc, keys, v_global))."""
     dtype = core.compute_dtype(cfg)
     v_enc, keys, v_global = _encode(params, cfg, arrays)
-    emb_in = core.embed_tokens(params, arrays["tokens"][:, :-1], dtype)
-    h_seq, alphas, _ = core.decode(params, cfg, v_enc, keys, v_global,
-                                   emb_in, arrays["region_mask"])
+    tokens = arrays["tokens"]
+    if ss_prob is not None and generator is not None:
+        h_seq, alphas, _ = core.decode_scheduled_sampling(
+            params, cfg, v_enc, keys, v_global, tokens[:, :-1],
+            arrays["region_mask"], ss_prob, generator)
+    else:
+        emb_in = core.embed_tokens(params, tokens[:, :-1], dtype)
+        h_seq, alphas, _ = core.decode(params, cfg, v_enc, keys, v_global,
+                                       emb_in, arrays["region_mask"])
     if train and generator is not None:
         h_seq = dropout(h_seq, cfg.drop_prob_lm, generator,
                         deterministic=False)
@@ -61,11 +69,13 @@ def decode_teacher_forced(params, cfg, arrays, generator=None,
 
 
 def cyclical_loss(params, cfg, arrays, generator=None, train: bool = False,
-                  enable_cycle: bool = True):
+                  enable_cycle: bool = True, ss_prob=None):
     """Total loss = XE(decode) + cycle_weight * XE(reconstruct) (+ the
     attention entropy and supervised grounding terms when weighted).
-    Returns (loss, metrics) with metrics {loss, loss_decode, loss_recon,
-    attention_entropy[, loss_attn_sup]}, all 0-d tensors."""
+    ss_prob: scheduled sampling in the decode pass (with a generator; the
+    reconstruct pass stays teacher-forced). Returns (loss, metrics) with
+    metrics {loss, loss_decode, loss_recon, attention_entropy[,
+    loss_attn_sup]}, all 0-d tensors."""
     dtype = core.compute_dtype(cfg)
     tokens, token_mask = arrays["tokens"], arrays["token_mask"]
     targets = tokens[:, 1:]
@@ -73,12 +83,14 @@ def cyclical_loss(params, cfg, arrays, generator=None, train: bool = False,
 
     # With GT-word localizer queries the reconstruct pass does not depend
     # on the decode pass's words, so both run as one scan over the stacked
-    # [2B] batch (see _fused_gt_cycle_loss).
-    if enable_cycle and cfg.cycle_localize_gt and cfg.fuse_cycle_scans:
+    # [2B] batch (see _fused_gt_cycle_loss); not under scheduled sampling,
+    # whose decode pass is a scan of its own.
+    if (enable_cycle and cfg.cycle_localize_gt and cfg.fuse_cycle_scans
+            and ss_prob is None):
         return _fused_gt_cycle_loss(params, cfg, arrays, generator, train)
 
     logits_dec, alphas, _, (v_enc, keys, v_global) = decode_teacher_forced(
-        params, cfg, arrays, generator, train)
+        params, cfg, arrays, generator, train, ss_prob=ss_prob)
     loss_dec = _xent(cfg, logits_dec, targets, mask)
 
     loss_rec = torch.zeros((), dtype=torch.float32, device=loss_dec.device)

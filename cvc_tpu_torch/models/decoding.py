@@ -34,7 +34,8 @@ from cvc_tpu_torch.models import core
 from cvc_tpu_torch.ops import dispatch
 from cvc_tpu_torch.ops.kernels import (fused_beam_decoder_core,
                                        fused_topk_lse)
-from cvc_tpu_torch.ops.primitives import lstm_cell, masked_softmax
+from cvc_tpu_torch.ops.primitives import (lstm_cell, masked_softmax,
+                                          sample_categorical)
 
 NEG_INF = -1e30
 
@@ -127,15 +128,20 @@ def _beam_step(params, cfg, carry, prev_word, v_enc, keys, region_mask,
 # ---------------------------------------------------------------------------
 
 def greedy_decode(params, cfg, arrays, max_len: int, temperature: float = 1.0,
-                  sample: bool = False):
-    """Argmax decoding. Returns dict(tokens [B, L], alphas [B, L, S],
-    logprobs [B, L]) with L = max_len + 1 (room for EOS)."""
-    if sample:
-        raise NotImplementedError("temperature sampling comes with the "
-                                  "SCST slice")
+                  sample: bool = False, generator=None):
+    """Argmax (or, with `sample`, temperature-sampled) decoding. Returns
+    dict(tokens [B, L], alphas [B, L, S], logprobs [B, L]) with L =
+    max_len + 1 (room for EOS); a finished row emits PAD at logprob 0.
+
+    With `sample`, each next word is drawn from log_softmax(logits /
+    max(T, 1e-6)) by `sample_categorical` (Gumbel-max) with `generator`, a
+    torch.Generator on the tensors' device, and the select kernel is off
+    (argmax is its k=1 case, a draw is not)."""
     feats = arrays["feats"]
     B = feats.shape[0]
-    select = dispatch.use_pallas_select(cfg, feats.device)
+    if sample and generator is None:
+        raise ValueError("sample=True needs a torch.Generator")
+    select = dispatch.use_pallas_select(cfg, feats.device) and not sample
     v_enc, keys, v_global = _encode(params, cfg, arrays)
     vg_pre = _vg_pre(params, cfg, v_global)
     region_mask = arrays["region_mask"]
@@ -154,6 +160,10 @@ def greedy_decode(params, cfg, arrays, max_len: int, temperature: float = 1.0,
             v1, idx1, lse = fused_topk_lse(logits, 1)
             nxt = idx1[:, 0].long()
             tok_lp = v1[:, 0] - lse
+        elif sample:
+            logp = torch.log_softmax(logits, dim=-1)
+            nxt = sample_categorical(logp, generator)
+            tok_lp = logp.gather(1, nxt[:, None])[:, 0]
         else:
             logp = torch.log_softmax(logits, dim=-1)
             nxt = logp.argmax(dim=-1)
@@ -284,7 +294,9 @@ _DECODER_CACHE: OrderedDict = OrderedDict()
 
 def make_decoder(cfg, eval_cfg, device="cuda"):
     """The generation function `fn(params, arrays) -> dict` for
-    EvalConfig.sample_method, memoized on the config values and the device
+    EvalConfig.sample_method ("beam", "greedy"; "sample" gives
+    `fn(params, arrays, generator)`, a torch.Generator on `device` for the
+    draws), memoized on the config values and the device
     (LRU, 32 entries). `device` must be usable: the default, CUDA, raises
     without a GPU. Raises ValueError where the kernels that cfg's
     dispatch picks on `device` do not take its widths or the beam count
@@ -310,12 +322,16 @@ def _make_decoder_uncached(cfg, eval_cfg):
         fn = partial(beam_search, cfg=cfg, beam_size=eval_cfg.beam_size,
                      max_len=eval_cfg.max_length,
                      length_penalty=eval_cfg.length_penalty)
-    elif eval_cfg.sample_method == "sample":
-        raise NotImplementedError("temperature sampling comes with the "
-                                  "SCST slice")
     else:
         fn = partial(greedy_decode, cfg=cfg, max_len=eval_cfg.max_length,
                      temperature=eval_cfg.temperature)
+    if eval_cfg.sample_method == "sample":
+        @torch.inference_mode()
+        def sample_decode(params, arrays, generator):
+            return fn(params=params, arrays=arrays, sample=True,
+                      generator=generator)
+
+        return sample_decode
 
     @torch.inference_mode()
     def decode(params, arrays):

@@ -5,6 +5,12 @@ matrices are [in, out] and applied as `x @ W`, LSTM gates are in i, f, g, o
 order, so weights cross between the packages with no transposes. The file
 format is the flat `a/b/c` npz that `cvc_tpu.models.torch_import.
 save_params_npz` writes.
+
+The region transformer's subtree (`obj_interact/layers`) is a list of layer
+dicts, as the JAX package keeps it. `params_from_numpy` converts it; the
+flat npz has no form for a list, so `save_params_npz` refuses one, naming
+its path (the JAX package's writer turns it into an object array that
+`np.load` then refuses).
 """
 
 from __future__ import annotations
@@ -16,13 +22,15 @@ from cvc_tpu_torch.ops.dispatch import resolve_device
 
 
 def params_from_numpy(tree, device="cuda") -> dict:
-    """Nested dict of numpy arrays (or tensors) -> the same tree of tensors
-    on `device`, values and dtypes unchanged."""
+    """Nested dicts and lists of numpy arrays (or tensors) -> the same tree
+    of tensors on `device`, values and dtypes unchanged."""
     device = resolve_device(device)
 
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [conv(v) for v in node]
         if isinstance(node, torch.Tensor):
             return node.to(device)
         return torch.from_numpy(np.array(node)).to(device)
@@ -32,13 +40,18 @@ def params_from_numpy(tree, device="cuda") -> dict:
 
 def save_params_npz(params, path: str) -> None:
     """Flatten a parameter tree of tensors or arrays to an .npz with
-    'a/b/c' keys."""
+    'a/b/c' keys. Raises ValueError, naming the path, at a list node (the
+    region transformer's layers), which the flat layout cannot hold."""
     flat = {}
 
     def walk(prefix, node):
         if isinstance(node, dict):
             for k, v in node.items():
                 walk(f"{prefix}/{k}" if prefix else k, v)
+        elif isinstance(node, (list, tuple)):
+            raise ValueError(
+                f"{prefix}: a list of {len(node)} subtrees; the flat a/b/c "
+                f"npz layout has no form for a list")
         elif isinstance(node, torch.Tensor):
             flat[prefix] = node.detach().cpu().numpy()
         else:

@@ -76,3 +76,15 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
     keep = 1.0 - rate
     kept = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(kept, x / keep, torch.zeros_like(x)).to(x.dtype)
+
+
+def sample_categorical(logits: torch.Tensor,
+                       generator: torch.Generator) -> torch.Tensor:
+    """One draw a row from softmax(logits) over the last axis, by
+    Gumbel-max: argmax(logits - log E) with E ~ Exp(1) drawn from
+    `generator` (on the logits' device), the one-sample method of
+    `torch.multinomial`. Exact in distribution; the draws cannot match
+    jax.random's. Returns int64 indices [...]."""
+    e = torch.empty(logits.shape, dtype=torch.float32, device=logits.device)
+    e.exponential_(generator=generator)
+    return torch.argmax(logits.float() - torch.log(e), dim=-1)

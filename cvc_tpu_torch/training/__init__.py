@@ -1,1 +1,2 @@
-"""Training: the cyclical train step, its optimizer and state."""
+"""Training: the cyclical train step, scheduled sampling, SCST, their
+optimizer and state."""

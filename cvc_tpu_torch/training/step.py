@@ -19,28 +19,34 @@ from cvc_tpu_torch.training.optimizer import make_optimizer
 
 def make_train_step(model_cfg, train_cfg, steps_per_epoch: int,
                     device="cuda"):
-    """step(state, arrays, generator) -> metrics: one update of the
-    `TrainState` in place. `arrays` holds the batch's tensors on `device`
-    (see models/cyclical.py); `generator` is a torch.Generator on `device`
-    for the dropout draws (None: no dropout). The metrics are 0-d device
+    """step(state, arrays, generator, ss_prob=None) -> metrics: one update
+    of the `TrainState` in place. `arrays` holds the batch's tensors on
+    `device` (see models/cyclical.py, `data.pipeline.to_device`);
+    `generator` is a torch.Generator on `device` for the dropout draws
+    (None: no dropout). With `train_cfg.scheduled_sampling_start >= 0` a
+    given `ss_prob` (a float or 0-d tensor; the epoch schedule is the
+    caller's) scheduled-samples the decode pass's inputs from `generator`
+    (`models/core.py` `decode_scheduled_sampling`); otherwise the step
+    ignores it, as the JAX package's does. The metrics are 0-d device
     tensors, `grad_norm` the gradients' global norm before clipping;
-    nothing in the step waits for the host. Raises without a GPU unless
-    device="cpu", and raises ValueError where the training kernels that
-    model_cfg's dispatch picks on `device` do not take its widths
+    nothing in the step waits for the host. Raises without a GPU unless device="cpu",
+    and raises ValueError where the training kernels that model_cfg's
+    dispatch picks on `device` do not take its widths
     (`dispatch.require_fit`)."""
     require_fit(model_cfg, resolve_device(device), "train")
-    if train_cfg.scheduled_sampling_start >= 0:
-        raise NotImplementedError("scheduled sampling is not ported yet")
     optimizer = make_optimizer(train_cfg, steps_per_epoch)
     enable_cycle = train_cfg.enable_cycle
+    use_ss = train_cfg.scheduled_sampling_start >= 0
 
-    def train_step(state, arrays: dict, generator=None) -> dict:
+    def train_step(state, arrays: dict, generator=None,
+                   ss_prob=None) -> dict:
         leaves = state.leaves
         for p in leaves:
             p.grad = None
         loss, metrics = cyclical_loss(state.params, model_cfg, arrays,
                                       generator=generator, train=True,
-                                      enable_cycle=enable_cycle)
+                                      enable_cycle=enable_cycle,
+                                      ss_prob=ss_prob if use_ss else None)
         loss.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = optimizer.update(state.opt, leaves, state.step)

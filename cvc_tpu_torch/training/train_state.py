@@ -10,12 +10,17 @@ import torch
 
 
 def tree_items(tree, prefix: str = "") -> list:
-    """(path 'a/b/c', tensor) pairs of a nested dict, depth first in
+    """(path 'a/b/c', tensor) pairs of nested dicts and lists (a list's
+    items by index: 'obj_interact/layers/0/qkv_w'), depth first in
     insertion order."""
     if isinstance(tree, dict):
-        return [kv for k, v in tree.items()
-                for kv in tree_items(v, f"{prefix}/{k}" if prefix else k)]
-    return [(prefix, tree)]
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return [(prefix, tree)]
+    return [kv for k, v in items
+            for kv in tree_items(v, f"{prefix}/{k}" if prefix else str(k))]
 
 
 @dataclass

@@ -175,6 +175,11 @@ def test_make_decoder_memoizes_on_config_values():
         beam_size=2, max_length=cfg.seq_length), "cpu") is a
     assert tdec.make_decoder(cfg, dataclasses.replace(e, beam_size=3),
                              "cpu") is not a
-    with pytest.raises(NotImplementedError):
-        tdec.make_decoder(cfg, dataclasses.replace(e, sample_method="sample"),
+    # the sampling decoder is memoized too, apart from the greedy one (it
+    # takes a generator; tests/test_torch_scst.py checks its draws)
+    s = tdec.make_decoder(cfg, dataclasses.replace(e, sample_method="sample"),
                           "cpu")
+    assert s is not a and tdec.make_decoder(
+        cfg, dataclasses.replace(e, sample_method="sample"), "cpu") is s
+    assert s is not tdec.make_decoder(
+        cfg, dataclasses.replace(e, sample_method="greedy"), "cpu")

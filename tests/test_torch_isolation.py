@@ -52,14 +52,29 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 def test_training_entry_points_default_to_cuda_and_raise_without_it(
         monkeypatch):
-    from cvc_tpu_torch.config import ModelConfig, TrainConfig
+    from cvc_tpu_torch.config import EvalConfig, ModelConfig, TrainConfig
+    from cvc_tpu_torch.data.pipeline import to_device
     from cvc_tpu_torch.models.core import init_params
+    from cvc_tpu_torch.models.decoding import make_decoder
+    from cvc_tpu_torch.training.scst import (make_scst_sampler,
+                                             make_scst_step)
     from cvc_tpu_torch.training.step import make_eval_step, make_train_step
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         make_train_step(ModelConfig(), TrainConfig(), 10)
     with pytest.raises(RuntimeError, match="cuda"):
+        make_train_step(ModelConfig(),
+                        TrainConfig(scheduled_sampling_start=0), 10)
+    with pytest.raises(RuntimeError, match="cuda"):
         make_eval_step(ModelConfig())
     with pytest.raises(RuntimeError, match="cuda"):
         init_params(torch.Generator(), ModelConfig())
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_scst_sampler(ModelConfig(), 20)
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_scst_step(ModelConfig(), TrainConfig(), 10, xe_weight=0.5)
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_decoder(ModelConfig(), EvalConfig(sample_method="sample"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        to_device({})

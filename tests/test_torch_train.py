@@ -307,7 +307,29 @@ def test_c3_config_loads_unchanged():
     assert tfields == jfields
 
 
-def test_train_step_refuses_scheduled_sampling():
-    with pytest.raises(NotImplementedError):
-        make_train_step(ModelConfig(), TrainConfig(scheduled_sampling_start=0),
-                        10, device="cpu")
+def test_train_step_refuses_scheduled_sampling(monkeypatch):
+    """The step passes a given ss_prob on to the loss only when
+    scheduled_sampling_start >= 0, and None otherwise, as the JAX
+    package's step does; the scheduled-sampling step is tested in
+    tests/test_torch_scheduled_sampling.py."""
+    import cvc_tpu_torch.training.step as step_mod
+
+    seen = []
+    real = step_mod.cyclical_loss
+
+    def recording(*a, ss_prob=None, **kw):
+        seen.append(ss_prob)
+        return real(*a, ss_prob=ss_prob, **kw)
+
+    monkeypatch.setattr(step_mod, "cyclical_loss", recording)
+    jcfg = tiny_model_config()
+    batch = _t(random_batch(jcfg, batch=2, seed=0))
+    for start, want in ((-1, None), (0, 0.5)):
+        tc = TrainConfig(scheduled_sampling_start=start)
+        step = make_train_step(_port_cfg(jcfg, True), tc, 10, device="cpu")
+        state = TrainState.create(
+            _port_params(jcore.init_params(jax.random.PRNGKey(0), jcfg),
+                         requires_grad=False), make_optimizer(tc, 10))
+        step(state, batch, torch.Generator().manual_seed(0), 0.5)
+        assert seen[-1] == want
+        assert state.step == 1

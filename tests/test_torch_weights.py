@@ -91,7 +91,7 @@ def test_config_json_written_by_jax_loads():
     assert dataclasses.asdict(cfg.eval) == dataclasses.asdict(jcfg.eval)
     assert cfg.model.total_regions == jcfg.model.total_regions
     assert cfg.model.max_tokens == jcfg.model.max_tokens
-    assert cfg.data["batch_size"] == jcfg.data.batch_size
+    assert cfg.data.batch_size == jcfg.data.batch_size
 
 
 def test_vocab_and_padding_match_jax(tmp_path):
