@@ -97,7 +97,23 @@
    (tokens against the plain path's).
    Phases 5 to 8 read the launch counters around every step, iteration
    or batch against the counts the code implies.
-9. Prints one `{"kernels": [...]}` line, then, as the last line,
+9. The main path as users run it (`loop_phase`): the c3 config on the
+   synthetic world (256 train and 64 val images, V 128 from its 44 words,
+   B 64, f32), checkpoints in a temporary directory: `training.loop.train`
+   for 2 epochs validating at beam 5 (infos, best CIDEr, the mean loss
+   falling, the checkpoint steps on disk), resumed to epoch 3 against a
+   straight 3-epoch run (parameters within a stated tolerance), one epoch
+   on the device-resident feed (`gather_batch` bit-equal to make_batches +
+   to_device), one SCST epoch from the checkpoint, streaming and resident,
+   the eval CLI (`cvc_tpu_torch.eval.main`) at beam 5, in GT-sentence mode
+   and with the localizer's grounding and the cycle probes, and
+   `Captioner.from_checkpoint` (its beam-5 tokens >= 98% the eval CLI's).
+   The counters are read around each against the counts the code implies;
+   every kernel must launch in the phase. Prints ms an epoch and tokens/s,
+   a validation pass split into device decode and host scoring, a
+   checkpoint's save (host copy, write) and restore, and the card's busy
+   share of one profiled epoch.
+10. Prints one `{"kernels": [...]}` line, then, as the last line,
    `{"ok": true, "device": {...}}`.
 
 Exits non-zero, with no result line, on any failure, when no CUDA device
@@ -2407,6 +2423,408 @@ def obj_interact_phase(sm: Smoke, smi: str, counts: dict, c3) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 10: the training loop, checkpoints, evaluation and the CLIs
+
+LOOP_VAL_IMAGES = 64                         # synthetic_num_val_images
+# (b) resume against a straight run: on the card the embedding backward's
+# atomics may reorder sums, so the two agree within these: the largest
+# difference of any parameter, and the share of elements that differ by
+# more than RESUME_ELEMENT_TOL (different draws or batches move nearly all
+# of them by ~the learning rate, 5e-4)
+RESUME_MAX_ABS, RESUME_ELEMENT_TOL, RESUME_SHARE = 1e-3, 1e-6, 0.01
+SERVE_AGREE = 0.98                           # (f) token agreement
+
+
+def loop_config(root: str, name: str, **train_kw):
+    """configs/c3_flickr_cyclical.json on the synthetic world (SYNTH_IMAGES
+    train images, LOOP_VAL_IMAGES val images, B 64, f32, dropout 0.5),
+    validating every epoch with beam 5, checkpoints under root/name."""
+    import os
+    c = c3_config()
+    c.data.dataset = "synthetic"
+    c.data.synthetic_num_images = SYNTH_IMAGES
+    c.data.synthetic_num_val_images = LOOP_VAL_IMAGES
+    c.data.seed = SYNTH_SEED
+    c.train.beam_size = BEAM
+    c.train.checkpoint_path = os.path.join(root, name)
+    for k, v in train_kw.items():
+        setattr(c.train, k, v)
+    return c
+
+
+def log_rows(log_dir: str, prefix: str) -> list:
+    """The rows of a MetricLogger's metrics.jsonl that hold `prefix` keys."""
+    import os
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return [r for r in rows if any(k.startswith(prefix) for k in r)]
+
+
+def phase_counts(counts: dict, got: dict) -> None:
+    for k, n in got.items():
+        counts[k] = counts.get(k, 0) + n
+
+
+def fresh_state(torch, cfg):
+    from cvc_tpu_torch.models import core
+    from cvc_tpu_torch.training.optimizer import make_optimizer
+    from cvc_tpu_torch.training.train_state import TrainState
+    return TrainState.create(
+        core.init_params(torch.Generator().manual_seed(0), cfg.model, DEVICE),
+        make_optimizer(cfg.train, 1))
+
+
+def recording_decoder(fn, seen: list):
+    """fn with the tokens of every call appended to `seen`."""
+    def wrapped(params, arrays, *rest):
+        out = fn(params, arrays, *rest)
+        seen.append(out["tokens"])
+        return out
+    return wrapped
+
+
+def loop_phase(sm: Smoke, smi: str, counts: dict) -> None:
+    """Phase 10: the port's main path as users run it, on the synthetic
+    world at the c3 widths (V 128: the world's 44 words padded), through
+    `training.loop.train`, `cvc_tpu_torch.eval.main` and
+    `Captioner.from_checkpoint`, with checkpoints in a temporary directory
+    removed at the end:
+    (a) 2 epochs with the cycle on, validating each epoch at beam 5;
+    (b) resumed to epoch 3 from (a), against a straight 3-epoch run;
+    (c) one epoch with the resident feed, and `gather_batch` against
+        make_batches + to_device for the same pairs, bit-equal;
+    (d) one SCST epoch from (a)'s checkpoint, streaming and resident;
+    (e) the eval CLI at beam 5, then in GT-sentence mode, then with the
+        localizer's grounding and the cycle probes;
+    (f) Captioner.from_checkpoint's beam-5 tokens against (e)'s.
+    The launch counters are read around each, and every kernel must have
+    launched in the phase. Prints ms an epoch and tokens/s, a validation
+    pass split into device decode and host scoring, a checkpoint's save
+    (host copy, write) and restore, and the card's busy share of one
+    profiled epoch."""
+    torch = sm.torch
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    from cvc_tpu_torch import eval as eval_cli
+    from cvc_tpu_torch.data.datasets import load_dataset
+    from cvc_tpu_torch.data.device_data import DeviceDataset, gather_batch
+    from cvc_tpu_torch.data.pipeline import (_assemble, make_batches,
+                                             num_batches, to_device)
+    from cvc_tpu_torch.evaluation import evaluator
+    from cvc_tpu_torch.evaluation.grounding import grounding_eval
+    from cvc_tpu_torch.evaluation.language_eval import language_eval
+    from cvc_tpu_torch.models.decoding import make_decoder
+    from cvc_tpu_torch.serving import Captioner
+    from cvc_tpu_torch.training.checkpoint import (CheckpointManager,
+                                                   load_config)
+    from cvc_tpu_torch.training.loop import step_generator, train
+    from cvc_tpu_torch.training.step import make_train_step
+    from cvc_tpu_torch.training.train_state import tree_items
+
+    root = tempfile.mkdtemp(prefix="cvc_loop_")
+    cache_before = os.environ.get("CVC_SYNTH_CACHE")
+    os.environ["CVC_SYNTH_CACHE"] = os.path.join(root, "synth")
+    phase: dict = {}
+    t_phase = time.perf_counter()
+    try:
+        def run(label, fn, expect=None, nonzero=()):
+            out, got = counted(sm, counts, fn)
+            phase_counts(phase, got)
+            print(f"loop: {label}: launches {json.dumps(got)}", flush=True)
+            if expect is not None:
+                check_launches(sm, f"loop: {label}", [got], expect)
+            for k in nonzero:
+                sm.check(got.get(k, 0) > 0, f"loop: {label}: {k} launched")
+            return out
+
+        # (a) two epochs, validating each at beam 5
+        cfg_a = loop_config(root, "a")
+        ds = load_dataset(cfg_a.data, cfg_a.model, "train")
+        spe = num_batches(ds, cfg_a.data.batch_size)
+        val_pass = {"fused_beam_decoder_core": STEPS,
+                    "fused_topk_lse": STEPS}
+
+        def per(n_steps, n_val, step_launches=ARGMAX_LAUNCHES):
+            return {k: n_steps * step_launches.get(k, 0)
+                    + n_val * val_pass.get(k, 0)
+                    for k in {**step_launches, **val_pass}}
+
+        t0 = time.perf_counter()
+        infos = run("(a) train 2 epochs + 2 beam-5 validations",
+                    lambda: train(cfg_a, max_epochs=2,
+                                  log_dir=os.path.join(root, "log_a"),
+                                  device=DEVICE),
+                    per(2 * spe, 2))
+        print(f"loop: (a) {spe} steps an epoch, {len(ds)} images, "
+              f"{len(ds.vocab)} words (V {cfg_a.model.vocab_size}); train() "
+              f"{time.perf_counter() - t0:.1f} s; infos {json.dumps(infos)}",
+              flush=True)
+        speed = [r for r in log_rows(os.path.join(root, "log_a"), "speed/")
+                 if "speed/sec" in r]
+        for r in speed:
+            print(f"loop: (a) epoch {int(r['speed/epoch']) + 1}: "
+                  f"{r['speed/sec'] * 1e3:.1f} ms, "
+                  f"{r['speed/tokens_per_sec']:.0f} tokens/s, waiting for "
+                  f"batches {r['speed/data_wait_sec'] * 1e3:.1f} ms, mean "
+                  f"loss {r['speed/loss_mean']:.4f} on {smi}", flush=True)
+        val_sec = [r["speed/val_sec"] for r in log_rows(
+            os.path.join(root, "log_a"), "speed/") if "speed/val_sec" in r]
+        print(f"loop: (a) validation passes in the loop: "
+              f"{', '.join(f'{v * 1e3:.1f}' for v in val_sec)} ms on {smi}",
+              flush=True)
+        val = log_rows(os.path.join(root, "log_a"), "val/")
+        sm.check(infos["epoch"] == 2, f"loop: (a) infos epoch "
+                                      f"{infos['epoch']} == 2")
+        sm.check(math.isfinite(infos["best_cider"])
+                 and infos["best_cider"] >= 0,
+                 f"loop: (a) best_cider {infos['best_cider']:.4f} finite, "
+                 f">= 0")
+        sm.check(len(speed) == 2 and speed[1]["speed/loss_mean"]
+                 < speed[0]["speed/loss_mean"],
+                 "loop: (a) mean loss of epoch 2 below epoch 1's")
+        sm.check(len(val) == 2 and all(
+            math.isfinite(r["val/CIDEr"]) and math.isfinite(r["val/F1_all"])
+            for r in val), "loop: (a) two validations with finite CIDEr, "
+                           "F1_all")
+        on_disk = sorted(int(n) for n in os.listdir(cfg_a.train.
+                                                    checkpoint_path)
+                         if n.isdigit())
+        sm.check(on_disk == [spe, 2 * spe],
+                 f"loop: (a) checkpoint steps on disk {on_disk}")
+
+        # (b) resume to epoch 3, beside a straight 3-epoch run
+        cfg_b = loop_config(root, "b", start_from=cfg_a.train.checkpoint_path)
+        cfg_s = loop_config(root, "s", save_checkpoint_every=3)
+        run("(b) resumed epoch 3", lambda: train(
+            cfg_b, max_epochs=3, log_dir=os.path.join(root, "log_b"),
+            device=DEVICE), per(spe, 1))
+        run("(b) straight 3 epochs", lambda: train(
+            cfg_s, max_epochs=3, log_dir=os.path.join(root, "log_s"),
+            device=DEVICE), per(3 * spe, 3))
+        finals = []
+        for c in (cfg_b, cfg_s):
+            st = fresh_state(torch, load_config(c.train.checkpoint_path))
+            finals.append(CheckpointManager(c.train.checkpoint_path).restore(
+                st, 3 * spe)[0])
+        worst, n_off, n_all = 0.0, 0, 0
+        for (k, x), (_, y) in zip(tree_items(finals[0].params),
+                                  tree_items(finals[1].params)):
+            d = (x.detach() - y.detach()).abs()
+            worst = max(worst, float(d.max()))
+            n_off += int((d > RESUME_ELEMENT_TOL).sum())
+            n_all += d.numel()
+        print(f"loop: (b) resumed vs straight: largest parameter difference "
+              f"{worst:.3e}, {n_off} of {n_all} elements differ by more "
+              f"than {RESUME_ELEMENT_TOL:g}", flush=True)
+        sm.check(worst <= RESUME_MAX_ABS and n_off <= RESUME_SHARE * n_all,
+                 f"loop: (b) resume = straight run (max {worst:.3e} <= "
+                 f"{RESUME_MAX_ABS:g}, {n_off / n_all:.2e} of elements "
+                 f"<= {RESUME_SHARE:g})")
+        sm.check(finals[0].step == finals[1].step == 3 * spe,
+                 f"loop: (b) both at step {3 * spe}")
+
+        # (c) one epoch with the resident feed
+        cfg_c = loop_config(root, "c", language_eval=False,
+                            grounding_eval=False)
+        cfg_c.data.device_resident = True
+        run("(c) resident epoch", lambda: train(
+            cfg_c, max_epochs=1, log_dir=os.path.join(root, "log_c"),
+            device=DEVICE), per(spe, 0))
+        r = [r for r in log_rows(os.path.join(root, "log_c"), "speed/")
+             if "speed/sec" in r][0]
+        print(f"loop: (c) resident epoch (the process's first on that feed): "
+              f"{r['speed/sec'] * 1e3:.1f} ms, {r['speed/tokens_per_sec']:.0f}"
+              f" tokens/s, waiting for batches "
+              f"{r['speed/data_wait_sec'] * 1e3:.1f} ms on {smi}", flush=True)
+        mc = load_config(cfg_c.train.checkpoint_path).model
+        dd = DeviceDataset(ds, mc, device=DEVICE)
+        same = True
+        for seed in (0, 1):
+            idx = next(dd.epoch_batches(cfg_c.data.batch_size, seed))
+            got = gather_batch(dd.data, dd.upload_index(idx))
+            want = to_device(_assemble(ds, [dd.pairs[i] for i in idx], mc,
+                                       len(idx)).model_inputs(), DEVICE)
+            same &= got.keys() == want.keys() and all(
+                got[k].dtype == v.dtype and torch.equal(got[k], v)
+                for k, v in want.items())
+        sm.check(same, f"loop: (c) gather_batch = make_batches + to_device "
+                       f"for the same pairs, bit-equal ({dd.nbytes() / 2**20:.0f}"
+                       f" MiB resident)")
+
+        # (d) one SCST epoch from (a)'s checkpoint, streaming and resident
+        for resident in (False, True):
+            name = "d_resident" if resident else "d_streaming"
+            cfg_d = loop_config(root, name, self_critical_after=2,
+                                start_from=cfg_a.train.checkpoint_path,
+                                losses_log_every=1, language_eval=False,
+                                grounding_eval=False)
+            cfg_d.data.device_resident = resident
+            t0 = time.perf_counter()
+            run(f"(d) SCST epoch, {name[2:]}", lambda: train(
+                cfg_d, max_epochs=3, log_dir=os.path.join(root, "log_" + name),
+                device=DEVICE), per(spe, 0, SCST_LAUNCHES))
+            rows = [r for r in log_rows(os.path.join(root, "log_" + name),
+                                        "train/")]
+            rs = [r["train/reward_sample"] for r in rows]
+            rg = [r["train/reward_greedy"] for r in rows]
+            sec = [r["speed/sec"] for r in log_rows(
+                os.path.join(root, "log_" + name), "speed/")
+                if "speed/sec" in r]
+            print(f"loop: (d) SCST {name[2:]}: {len(rows)} iterations, the "
+                  f"epoch {sec[0] * 1e3:.1f} ms (train() whole "
+                  f"{time.perf_counter() - t0:.1f} s) on {smi}; "
+                  f"rewards sample {', '.join(f'{v:.4f}' for v in rs)}; "
+                  f"greedy {', '.join(f'{v:.4f}' for v in rg)}", flush=True)
+            sm.check(len(rows) == spe and all(
+                math.isfinite(v) for v in rs + rg
+                + [r["train/loss"] for r in rows]),
+                f"loop: (d) SCST {name[2:]}: {spe} iterations, rewards and "
+                f"losses finite")
+
+        # (e) the eval CLI on (a)'s directory
+        base = ["--start_from", cfg_a.train.checkpoint_path, "--split", "val",
+                "--batch_size", str(cfg_a.data.batch_size), "--out_dir",
+                os.path.join(root, "eval"), "--beam_size", str(BEAM)]
+        seen_eval: list = []
+        make = evaluator.make_decoder
+        evaluator.make_decoder = lambda *a, **k: recording_decoder(
+            make(*a, **k), seen_eval)
+        try:
+            res = run("(e) eval beam 5", lambda: eval_cli.main(
+                base, device=DEVICE), val_pass)
+        finally:
+            evaluator.make_decoder = make
+        keys = ("CIDEr", "Bleu_4", "METEOR", "F1_all", "F1_loc")
+        sm.check(all(isinstance(res.get(k), float) and math.isfinite(res[k])
+                     for k in keys) and res["n_images"] == LOOP_VAL_IMAGES,
+                 "loop: (e) eval beam 5: " + ", ".join(
+                     f"{k} {res.get(k)}" for k in keys))
+        res = run("(e) eval --gt_sentence_mode 1", lambda: eval_cli.main(
+            base + ["--gt_sentence_mode", "1"], device=DEVICE),
+            nonzero=("fused_lstm_gates", "fused_additive_attention",
+                     "fused_beam_decoder_core", "fused_topk_lse"))
+        sm.check(math.isfinite(res.get("attn_accuracy", float("nan"))),
+                 f"loop: (e) GT-sentence attn_accuracy "
+                 f"{res.get('attn_accuracy')}")
+        res = run("(e) eval localizer + cycle probes", lambda: eval_cli.main(
+            base + ["--grounding_source", "localizer", "--cycle_probes", "1"],
+            device=DEVICE), nonzero=("fused_lstm_gates",
+                                     "fused_additive_attention"))
+        keys = ("CIDEr", "F1_all", "F1_loc", "tf_attn_acc", "loc_acc",
+                "vhat_dependence")
+        sm.check(all(math.isfinite(res.get(k, float("nan"))) for k in keys),
+                 "loop: (e) localizer + probes: " + ", ".join(
+                     f"{k} {res.get(k)}" for k in keys))
+
+        # (f) serving from the checkpoint, tokens against (e)'s
+        cap = Captioner.from_checkpoint(cfg_a.train.checkpoint_path,
+                                        beam_size=BEAM,
+                                        batch_size=cfg_a.data.batch_size,
+                                        device=DEVICE)
+        val_ds = load_dataset(cfg_a.data, cap.model_cfg, "val")
+        reqs = [{"features": ex.features, "boxes": ex.boxes,
+                 "classes": ex.classes} for ex in val_ds.examples]
+        seen_cap: list = []
+        cap.decoder = recording_decoder(cap.decoder, seen_cap)
+        out = run("(f) Captioner.from_checkpoint beam 5",
+                  lambda: cap.caption(reqs), val_pass)
+        got = torch.cat(seen_cap)[:len(reqs)]
+        want = torch.cat(seen_eval)[:len(reqs)]
+        agree = float((got == want).float().mean()) if \
+            got.shape == want.shape else 0.0
+        sm.check(len(out) == len(reqs) and agree >= SERVE_AGREE,
+                 f"loop: (f) from_checkpoint beam-5 tokens equal the eval "
+                 f"CLI's: {agree:.4f} of {tuple(got.shape)} (>= "
+                 f"{SERVE_AGREE})")
+
+        # a validation pass, split; a checkpoint's save and restore
+        params = cap.params
+        e_cfg = dataclasses.replace(cfg_a.eval, beam_size=BEAM,
+                                    sample_method="beam",
+                                    max_length=cap.model_cfg.seq_length)
+        decoder = make_decoder(cap.model_cfg, e_cfg, DEVICE)
+        b = next(make_batches(val_ds, cap.model_cfg, cfg_a.data.batch_size,
+                              shuffle=False, drop_last=False,
+                              unique_images=True))
+        arrays = to_device(b.model_inputs(), DEVICE)
+        dec_ms, gen_ms, score_ms = [], [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            decoder(params, arrays)["tokens"].cpu()
+            dec_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            preds, samples, refs = evaluator.generate_split(
+                params, cap.model_cfg, e_cfg, val_ds, cfg_a.data.batch_size,
+                device=DEVICE)
+            gen_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            language_eval(preds, refs)
+            grounding_eval(samples, val_ds.class_names)
+            score_ms.append((time.perf_counter() - t0) * 1e3)
+        print(f"loop: validation pass of {len(val_ds)} images, beam 5 "
+              f"(median of 3): generate_split "
+              f"{statistics.median(gen_ms):.1f} ms (device decode of the "
+              f"batch {statistics.median(dec_ms):.1f} ms, tokens to the "
+              f"host included) + host scoring {statistics.median(score_ms):.1f}"
+              f" ms (language_eval + grounding_eval) on {smi}", flush=True)
+
+        state, _ = CheckpointManager(cfg_a.train.checkpoint_path).restore(
+            fresh_state(torch, load_config(cfg_a.train.checkpoint_path)))
+        mgr = CheckpointManager(os.path.join(root, "timing"))
+        copy_ms, write_ms, restore_ms = [], [], []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr.save(i + 1, state, {"epoch": i})
+            copy_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            mgr.wait()
+            write_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            mgr.restore(state, i + 1)
+            torch.cuda.synchronize()
+            restore_ms.append((time.perf_counter() - t0) * 1e3)
+        n_bytes = sum(p.numel() * 4 for p in state.leaves) * 3
+        print(f"loop: checkpoint of {n_bytes / 2**20:.0f} MiB (parameters + "
+              f"Adam moments; median of 3): save {statistics.median(copy_ms):.1f}"
+              f" ms host copy + {statistics.median(write_ms):.1f} ms write "
+              f"(background thread), restore "
+              f"{statistics.median(restore_ms):.1f} ms on {smi}", flush=True)
+
+        # the card's busy share of one epoch of the loop's streaming feed
+        cfg = load_config(cfg_a.train.checkpoint_path)
+        step = make_train_step(cfg.model, cfg.train, spe, DEVICE)
+
+        def epoch():
+            for bt in make_batches(ds, cfg.model, cfg.data.batch_size,
+                                   seed=cfg.data.seed + 5,
+                                   prefetch=cfg.data.prefetch,
+                                   num_workers=cfg.data.num_workers):
+                step(state, to_device(bt.model_inputs(), DEVICE),
+                     step_generator(DEVICE, cfg.train.seed + 1, state.step))
+
+        epoch()                                   # warm
+        profile_report(sm, epoch, f"loop: one epoch ({spe} steps, the "
+                                  f"loop's feed) on {smi}")
+
+        missing = [name for name, _, _ in KERNEL_ROWS
+                   if phase.get(name, 0) == 0]
+        sm.check(not missing, f"loop: every kernel launched in the phase "
+                              f"({json.dumps(phase)}; missing {missing})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if cache_before is None:
+            os.environ.pop("CVC_SYNTH_CACHE", None)
+        else:
+            os.environ["CVC_SYNTH_CACHE"] = cache_before
+    print(f"loop: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
 
 KERNEL_ROWS = [
     ("fused_lstm_gates", "cvc_tpu_torch/csrc/lstm.cu",
@@ -2475,6 +2893,7 @@ def main(argv: list[str]) -> int:
     ss_phase(sm, smi, counts, c3, ds)
     scst_phase(sm, smi, counts, c3, ds, xe_params)
     obj_interact_phase(sm, smi, counts, c3)
+    loop_phase(sm, smi, counts)
 
     kernels = []
     for name, source, replaces in KERNEL_ROWS:

@@ -10,9 +10,14 @@ decoding), the cyclical train step (`training.step.make_train_step`:
 decode -> localize -> reconstruct -> masked XE -> clip + Adam, with
 scheduled sampling), the data layer (`data/`: the synthetic world, the HDF5
 + JSON readers, the batch pipeline; `config.config_from_args`), temperature
-sampling and SCST (`training.scst`), and the region transformer
-(`models.transformer`, `ModelConfig.obj_interact`). Entry points run on
-CUDA unless the caller passes device="cpu".
+sampling and SCST (`training.scst`), the region transformer
+(`models.transformer`, `ModelConfig.obj_interact`), evaluation
+(`evaluation/`: the scorers, grounding, `evaluator`, `probes`),
+checkpoints (`training.checkpoint`), the device-resident dataset
+(`data.device_data`), the epoch loop (`training.loop.train`), the CLIs
+(`python -m cvc_tpu_torch.train`, `python -m cvc_tpu_torch.eval`) and
+`serving.Captioner.from_checkpoint`. Entry points run on CUDA unless the
+caller passes device="cpu".
 """
 
 __version__ = "0.1.0"

@@ -1,2 +1,2 @@
-"""The data layer of the port: vocabulary, datasets, the synthetic world
-and the batch pipeline."""
+"""The data layer of the port: vocabulary, datasets, the synthetic world,
+the batch pipeline and the device-resident dataset."""

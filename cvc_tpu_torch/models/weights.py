@@ -7,10 +7,12 @@ format is the flat `a/b/c` npz that `cvc_tpu.models.torch_import.
 save_params_npz` writes.
 
 The region transformer's subtree (`obj_interact/layers`) is a list of layer
-dicts, as the JAX package keeps it. `params_from_numpy` converts it; the
-flat npz has no form for a list, so `save_params_npz` refuses one, naming
-its path (the JAX package's writer turns it into an object array that
-`np.load` then refuses).
+dicts, as the JAX package keeps it. `params_from_numpy` converts it;
+`save_params_npz` writes a list's items under their indices
+(`obj_interact/layers/0/qkv_w`) and `load_params_npz` rebuilds a list
+where every key at a level is a decimal index. A tree without lists gets
+the keys the JAX package's writer gives it (which turns a list into an
+object array that `np.load` then refuses).
 """
 
 from __future__ import annotations
@@ -40,18 +42,15 @@ def params_from_numpy(tree, device="cuda") -> dict:
 
 def save_params_npz(params, path: str) -> None:
     """Flatten a parameter tree of tensors or arrays to an .npz with
-    'a/b/c' keys. Raises ValueError, naming the path, at a list node (the
-    region transformer's layers), which the flat layout cannot hold."""
+    'a/b/c' keys, a list's items under their indices ('layers/0/...')."""
     flat = {}
 
     def walk(prefix, node):
-        if isinstance(node, dict):
-            for k, v in node.items():
-                walk(f"{prefix}/{k}" if prefix else k, v)
-        elif isinstance(node, (list, tuple)):
-            raise ValueError(
-                f"{prefix}: a list of {len(node)} subtrees; the flat a/b/c "
-                f"npz layout has no form for a list")
+        if isinstance(node, (dict, list, tuple)):
+            items = (node.items() if isinstance(node, dict)
+                     else enumerate(node))
+            for k, v in items:
+                walk(f"{prefix}/{k}" if prefix else str(k), v)
         elif isinstance(node, torch.Tensor):
             flat[prefix] = node.detach().cpu().numpy()
         else:
@@ -61,8 +60,20 @@ def save_params_npz(params, path: str) -> None:
     np.savez(path, **flat)
 
 
+def _lists(node):
+    """Dicts whose keys are all decimal indices 0..n-1 -> lists."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _lists(v) for k, v in node.items()}
+    if node and all(k.isdigit() for k in node):
+        if sorted(int(k) for k in node) == list(range(len(node))):
+            return [node[str(i)] for i in range(len(node))]
+    return node
+
+
 def load_params_npz(path: str, device="cuda") -> dict:
-    """Inverse of save_params_npz: the nested tree of tensors on `device`."""
+    """Inverse of save_params_npz: the nested tree of tensors on `device`,
+    a level whose keys are all decimal indices as a list."""
     with np.load(path) as data:
         tree: dict = {}
         for key in data.files:
@@ -71,4 +82,4 @@ def load_params_npz(path: str, device="cuda") -> dict:
             for p in parts[:-1]:
                 node = node.setdefault(p, {})
             node[parts[-1]] = data[key]
-    return params_from_numpy(tree, device)
+    return params_from_numpy(_lists(tree), device)

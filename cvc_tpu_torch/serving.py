@@ -1,6 +1,7 @@
 """Serving API: batched grounded-caption inference (the port of
 `cvc_tpu/serving.py`).
 
+    cap = Captioner.from_checkpoint("save/exp1", beam_size=5)
     cap = Captioner.from_torch("params.npz", "config.json", "vocab.json")
     out = cap.caption([{"features": f, "boxes": b, "classes": c}, ...])
     # -> [{"caption": str, "score": float,
@@ -41,6 +42,42 @@ class Captioner:
     _turn: int = 0
 
     @staticmethod
+    def from_checkpoint(checkpoint_dir: str, beam_size: int = 5,
+                        batch_size: int = 64, length_penalty: float = 0.0,
+                        vocab: Vocabulary | None = None,
+                        device="cuda") -> "Captioner":
+        """Serve a directory that the port's `training.loop.train` wrote:
+        its `config.json`, the vocabulary (`vocab` if given, else the
+        config's vocab file, else the dataset's), and its best step, else
+        its latest."""
+        import os
+
+        from cvc_tpu_torch.training.checkpoint import (CheckpointManager,
+                                                       load_config)
+        from cvc_tpu_torch.training.optimizer import make_optimizer
+        from cvc_tpu_torch.training.train_state import TrainState
+
+        device = resolve_device(device)
+        cfg = load_config(checkpoint_dir)
+        if vocab is None:
+            vp = cfg.data.vocab_file
+            if vp and os.path.exists(vp):
+                vocab = Vocabulary.load(vp)
+            else:
+                from cvc_tpu_torch.data.datasets import load_dataset
+                vocab = load_dataset(cfg.data, cfg.model, "train").vocab
+        cfg.model.vocab_size = vocab.padded_size(128)
+        params = core.init_params(torch.Generator().manual_seed(0),
+                                  cfg.model, device)
+        state = TrainState.create(params, make_optimizer(cfg.train, 1))
+        mgr = CheckpointManager(checkpoint_dir)
+        step = mgr.best_step() or mgr.latest_step()
+        state, _ = mgr.restore(state, step=step)
+        params = core._map(state.params, lambda p: p.detach())
+        return Captioner.build(params, cfg.model, vocab, beam_size,
+                               batch_size, length_penalty, device)
+
+    @staticmethod
     def from_torch(ckpt_path: str, config_json: str, vocab_file: str,
                    beam_size: int = 5, batch_size: int = 64,
                    length_penalty: float = 0.0,
@@ -51,7 +88,7 @@ class Captioner:
         if not ckpt_path.endswith(".npz"):
             raise NotImplementedError(
                 f"{ckpt_path}: only .npz parameter files are served so far; "
-                f"the .pth importer is not ported yet")
+                f"the .pth importer waits for ROADMAP queue 1 item 7")
         device = resolve_device(device)
         with open(config_json) as f:
             cfg = Config.from_json(f.read())

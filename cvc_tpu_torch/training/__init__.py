@@ -1,2 +1,2 @@
 """Training: the cyclical train step, scheduled sampling, SCST, their
-optimizer and state."""
+optimizer and state, checkpoints and the epoch loop."""

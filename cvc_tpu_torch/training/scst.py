@@ -13,9 +13,11 @@ stage (the port of `cvc_tpu/training/scst.py`):
 On CUDA the sampled decode runs the LSTM gates and attention forward
 kernels, the greedy baseline those and the top-k select at k 1, and the
 step the stacked scan (`core.decode`) with its backward kernels, and, with
-`xe_weight > 0`, the cyclical loss's kernels. The reference's resident
-variants (`make_resident_scst_sampler`, `scst_train_batch_resident`) and
-its `mesh` arguments are not ported yet.
+`xe_weight > 0`, the cyclical loss's kernels. The resident variants
+(`make_resident_scst_sampler`, `make_scst_step(..., resident=True)`,
+`scst_train_batch_resident`) gather each batch from a `DeviceDataset` on
+the device. The JAX package's `mesh` arguments wait for multi-GPU
+support.
 """
 
 from __future__ import annotations
@@ -50,6 +52,21 @@ def make_scst_sampler(model_cfg, max_len: int, temperature: float = 1.0,
                           generator=generator)
         g = greedy_decode(params, model_cfg, arrays, max_len)
         return {"sample_tokens": s["tokens"], "greedy_tokens": g["tokens"]}
+
+    return fn
+
+
+def make_resident_scst_sampler(model_cfg, max_len: int,
+                               temperature: float = 1.0, device="cuda"):
+    """fn(params, data, idx, generator) -> dict(sample_tokens,
+    greedy_tokens): `make_scst_sampler` on the batch of pairs `idx` [B]
+    (int64 on the device) gathered from `DeviceDataset.data`
+    (`gather_batch`). Raises as make_scst_sampler does."""
+    from cvc_tpu_torch.data.device_data import gather_batch
+    sampler = make_scst_sampler(model_cfg, max_len, temperature, device)
+
+    def fn(params, data, idx, generator):
+        return sampler(params, gather_batch(data, idx), generator)
 
     return fn
 
@@ -94,7 +111,7 @@ def policy_gradient_loss(params, model_cfg, arrays, sample_tokens,
 
 def make_scst_step(model_cfg, train_cfg, steps_per_epoch: int,
                    xe_weight: float = 0.0, enable_cycle: bool | None = None,
-                   device="cuda"):
+                   device="cuda", resident: bool = False):
     """step(state, arrays, sample_tokens, advantage, generator=None) ->
     metrics: one policy-gradient update of the `TrainState` in place
     (`policy_gradient_loss`; no gradient flows through the sampling).
@@ -102,9 +119,11 @@ def make_scst_step(model_cfg, train_cfg, steps_per_epoch: int,
     staged by `enable_cycle` (default train_cfg.enable_cycle) and its
     dropout drawn from `generator` (None: no dropout). The metrics are
     0-d device tensors: loss, loss_pg, advantage_mean, sample_len[,
-    loss_xe]. Raises without a GPU unless device="cpu", and raises
-    ValueError where the training kernels do not take model_cfg's
-    widths."""
+    loss_xe]. With `resident=True` the step is step(state, data, idx,
+    sample_tokens, advantage, generator=None) and gathers the batch of
+    pairs `idx` [B] (int64 on the device) from `DeviceDataset.data`.
+    Raises without a GPU unless device="cpu", and raises ValueError where
+    the training kernels do not take model_cfg's widths."""
     require_fit(model_cfg, resolve_device(device), "train")
     optimizer = make_optimizer(train_cfg, steps_per_epoch)
     if enable_cycle is None:
@@ -129,6 +148,15 @@ def make_scst_step(model_cfg, train_cfg, steps_per_epoch: int,
         state.step += 1
         return {k: v.detach() for k, v in metrics.items()}
 
+    if resident:
+        from cvc_tpu_torch.data.device_data import gather_batch
+
+        def resident_step(state, data: dict, idx, sample_tokens, advantage,
+                          generator=None) -> dict:
+            return step(state, gather_batch(data, idx), sample_tokens,
+                        advantage, generator)
+
+        return resident_step
     return step
 
 
@@ -187,6 +215,34 @@ def scst_train_batch(state, arrays, batch, ds, sampler, step_fn, rewarder,
         (r_s - r_g) * np.asarray(batch.valid, np.float32)).to(
             sample_tokens.device)
     metrics = dict(step_fn(state, arrays, sample_tokens, advantage,
+                           step_generator))
+    metrics["reward_sample"] = float(r_s.mean())
+    metrics["reward_greedy"] = float(r_g.mean())
+    return metrics
+
+
+def scst_train_batch_resident(state, dd, idx, ds, sampler, step_fn,
+                              rewarder, sample_generator,
+                              step_generator=None) -> dict:
+    """One SCST iteration over a `DeviceDataset` `dd`: `idx` is the batch's
+    [B] pair-index array (host numpy), `sampler` a
+    `make_resident_scst_sampler` and `step_fn` a `make_scst_step(...,
+    resident=True)`. The per-step uploads are the index vector and the [B]
+    advantage; the sampled tokens visit the host for the CIDEr-D reward.
+    The two generators split as in `scst_train_batch`. Updates `state` in
+    place; returns the step's metrics with reward_sample and reward_greedy
+    added."""
+    idx_dev = dd.upload_index(idx)
+    out = sampler(state.params, dd.data, idx_dev, sample_generator)
+    sample_tokens = out["sample_tokens"]
+    tokens = torch.stack([sample_tokens, out["greedy_tokens"]]).cpu().numpy()
+    ex_ids = dd.example_ids(idx)
+    image_ids = [ds.get(e).image_id for e in ex_ids]
+    references = {ds.get(e).image_id: ds.get(e).captions for e in ex_ids}
+    r_s = rewarder.rewards(ds.vocab, tokens[0], image_ids, references)
+    r_g = rewarder.rewards(ds.vocab, tokens[1], image_ids, references)
+    advantage = torch.from_numpy(r_s - r_g).to(sample_tokens.device)
+    metrics = dict(step_fn(state, dd.data, idx_dev, sample_tokens, advantage,
                            step_generator))
     metrics["reward_sample"] = float(r_s.mean())
     metrics["reward_greedy"] = float(r_g.mean())

@@ -56,6 +56,25 @@ def make_train_step(model_cfg, train_cfg, steps_per_epoch: int,
     return train_step
 
 
+def make_resident_train_step(model_cfg, train_cfg, steps_per_epoch: int,
+                             device="cuda"):
+    """The train step over a device-resident dataset
+    (`data/device_data.py`): step(state, data, idx, generator,
+    ss_prob=None) -> metrics gathers the batch of pairs `idx` from
+    `DeviceDataset.data` on the device (`gather_batch`) and takes the
+    step of `make_train_step`, scheduled sampling included. `idx` is the
+    [B] int64 index tensor on the device (`DeviceDataset.upload_index`),
+    the only per-step upload. Raises as make_train_step does."""
+    from cvc_tpu_torch.data.device_data import gather_batch
+    step = make_train_step(model_cfg, train_cfg, steps_per_epoch, device)
+
+    def resident_step(state, data: dict, idx, generator=None,
+                      ss_prob=None) -> dict:
+        return step(state, gather_batch(data, idx), generator, ss_prob)
+
+    return resident_step
+
+
 def make_eval_step(model_cfg, device="cuda"):
     """eval_step(params, arrays) -> metrics: the cyclical loss with no
     dropout and no gradient. Raises without a GPU unless device="cpu",

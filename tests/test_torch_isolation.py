@@ -78,3 +78,43 @@ def test_training_entry_points_default_to_cuda_and_raise_without_it(
         make_decoder(ModelConfig(), EvalConfig(sample_method="sample"))
     with pytest.raises(RuntimeError, match="cuda"):
         to_device({})
+
+
+def test_loop_evaluation_and_cli_entry_points_default_to_cuda(
+        monkeypatch, tmp_path):
+    from cvc_tpu_torch import eval as cli_eval
+    from cvc_tpu_torch import train as cli_train
+    from cvc_tpu_torch.config import Config, EvalConfig, ModelConfig
+    from cvc_tpu_torch.data.device_data import DeviceDataset
+    from cvc_tpu_torch.data.synthetic import make_synthetic_dataset
+    from cvc_tpu_torch.evaluation.evaluator import (
+        evaluate_split, generate_split, gt_sentence_attention_eval)
+    from cvc_tpu_torch.evaluation.probes import cycle_probe_metrics
+    from cvc_tpu_torch.serving import Captioner
+    from cvc_tpu_torch.training.loop import train
+    from cvc_tpu_torch.training.scst import make_resident_scst_sampler
+    from cvc_tpu_torch.training.step import make_resident_train_step
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ds = make_synthetic_dataset(num_images=2, num_regions=4, feat_dim=8,
+                                seq_length=6)
+    cfg = Config()
+    cfg.train.checkpoint_path = str(tmp_path / "ckpt")
+    calls = [
+        lambda: train(cfg),
+        lambda: evaluate_split({}, ModelConfig(), EvalConfig(), ds, 2),
+        lambda: generate_split({}, ModelConfig(), EvalConfig(), ds, 2),
+        lambda: gt_sentence_attention_eval({}, ModelConfig(), ds, 2),
+        lambda: cycle_probe_metrics({}, ModelConfig(), ds, 2),
+        lambda: Captioner.from_checkpoint(str(tmp_path / "ckpt")),
+        lambda: cli_train.main(["--dataset", "synthetic"]),
+        lambda: cli_eval.main(["--start_from", str(tmp_path / "ckpt")]),
+        lambda: DeviceDataset(ds, ModelConfig(num_regions=4, feat_dim=8,
+                                              seq_length=6)),
+        lambda: make_resident_train_step(ModelConfig(), cfg.train, 10),
+        lambda: make_resident_scst_sampler(ModelConfig(), 20),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    assert not (tmp_path / "ckpt").exists()

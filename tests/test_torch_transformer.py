@@ -5,7 +5,8 @@ are O(1); float32 sums in another order leave ~2e-6 where terms cancel to
 near zero), `encode_regions`, `cyclical_loss` and its gradients at
 tests/test_torch_train.py's tolerances, greedy and beam tokens exact. The
 layers are a list in the parameter tree: `params_from_numpy` carries them,
-and `save_params_npz` refuses them, naming the path."""
+and the npz bridge writes them under index keys and reads them back as a
+list."""
 
 import dataclasses
 
@@ -29,7 +30,8 @@ from cvc_tpu_torch.models import decoding as tdec
 from cvc_tpu_torch.models.cyclical import cyclical_loss
 from cvc_tpu_torch.models.transformer import (init_transformer_params,
                                               region_self_attention)
-from cvc_tpu_torch.models.weights import params_from_numpy, save_params_npz
+from cvc_tpu_torch.models.weights import (load_params_npz,
+                                          params_from_numpy, save_params_npz)
 from cvc_tpu_torch.serving import Captioner
 from cvc_tpu_torch.training.train_state import tree_items
 from tests.conftest import random_batch, tiny_model_config
@@ -227,12 +229,20 @@ def test_params_from_numpy_carries_layer_lists():
 
 
 def test_save_params_npz_refuses_a_list_naming_its_path(tmp_path):
+    """The name is kept from when the writer refused a list: the npz bridge
+    now carries `obj_interact/layers` under index keys and reads it back
+    as a list, every array bit-equal."""
     jcfg, jparams, _ = _setup()
     tp = params_from_numpy(jax.device_get(jparams), "cpu")
     path = tmp_path / "params.npz"
-    with pytest.raises(ValueError, match="obj_interact/layers"):
-        save_params_npz(tp, str(path))
-    assert not path.exists()
-    del tp["obj_interact"]
-    save_params_npz(tp, str(path))           # the rest of the tree writes
-    assert path.exists()
+    save_params_npz(tp, str(path))
+    with np.load(path) as data:
+        assert "obj_interact/layers/0/qkv_w" in data.files
+    back = load_params_npz(str(path), "cpu")
+    assert isinstance(back["obj_interact"]["layers"], list)
+    want = dict(tree_items(tp))
+    got = dict(tree_items(back))
+    assert list(got) == list(want)
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype, k
+        np.testing.assert_array_equal(got[k].numpy(), v.numpy(), k)
