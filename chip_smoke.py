@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 1. Prints the card (`nvidia-smi` name and power limit) and builds the
-   port's CUDA kernels from `cvc_tpu_torch/csrc/` (timed).
+   port's CUDA kernels from `cvc_tpu_torch/csrc/` and its C++ host
+   libraries from `cvc_tpu_torch/csrc/host/` (timed).
 2. Holds each serving kernel against its plain PyTorch version at the
    flagship serving shapes, in bf16 and float32, with a fully masked image
    where attention is involved, the 1280-slot video width for the beam
@@ -94,7 +95,9 @@
    fixed sampled tokens and advantages.
 8. The region transformer: the c3 config with obj_interact, one f32 train
    step (loss and gradients against the plain path's) and beam-5 serving
-   (tokens against the plain path's).
+   (tokens against the plain path's); then in bf16, which follows the
+   JAX package's type promotion (encode_regions float32, every kernel
+   launched on float32 inputs, tokens against the plain path's).
    Phases 5 to 8 read the launch counters around every step, iteration
    or batch against the counts the code implies.
 9. The main path as users run it (`loop_phase`): the c3 config on the
@@ -113,7 +116,24 @@
    a validation pass split into device decode and host scoring, a
    checkpoint's save (host copy, write) and restore, and the card's busy
    share of one profiled epoch.
-10. Prints one `{"kernels": [...]}` line, then, as the last line,
+10. A reference `.pth` (`pth_phase`): a state_dict at the flagship
+   widths (checkpoint vocabulary 8700, a `module.` prefix, an alias)
+   through the import tool (timed), `Captioner.from_torch(.pth)` at beam 5
+   in bf16 (tokens equal to the tool's npz's; in float32 >= 98% the plain
+   path's), and one epoch of the train CLI with `--import_torch`.
+11. The C++ host libraries (`native_phase`; both built with g++ from
+   `cvc_tpu_torch/csrc/host/` at the start, and required to load):
+   `make_batches` packed by C++ bit-equal to numpy's, ms a batch each way
+   inline and with 4 threads; the SCST reward's CIDEr-D within 1e-9 of
+   Python's, ms each way; an SCST iteration split with the C++ reward.
+12. Ranks (`parallel_phase`): two ranks over gloo sharing the card, each
+   against the one-process run of the same 64 images: c3 f32 steps with
+   dropout on and off over 2 data ranks and over 1 data x 2 model ranks
+   (loss, gradients at `grad_tol`, parameters after Adam), a resident step
+   over a ShardedDeviceDataset, an SCST iteration and a beam-5 validation
+   pass; then a world of one over NCCL through `train`; launches a step
+   on each rank.
+13. Prints one `{"kernels": [...]}` line, then, as the last line,
    `{"ok": true, "device": {...}}`.
 
 Exits non-zero, with no result line, on any failure, when no CUDA device
@@ -338,7 +358,8 @@ RAGGED_BWD = ((13, 128, 37, (4,)), (5, 128, 1, ()), (1, 104, 37, ()),
               (3, 1280, 999, (1,)))
 RAGGED_FWD = ((13, 128, 37, (4,)), (5, 128, 1, ()), (1, 104, 37, ()),
               (3, 1280, 999, (1,)))
-LSTM_ROWS = (1, 13, BATCH, 2 * BATCH)        # R of the LSTM forward's cases
+LSTM_ROWS = (1, 13, BATCH // 2, BATCH, 2 * BATCH)   # R of the LSTM cases;
+                                             # 32: a data rank's of 64
 
 
 def scattered_mask(torch, gen, dev, B, S, live, masked=()):
@@ -490,7 +511,8 @@ def kernel_phase(sm: Smoke, results: dict) -> None:
         sz = torch.tensor([], dtype=dt).element_size()
 
         # row 1: LSTM gates forward, H = 1024: the greedy and train rows
-        # R = 64, the merged scan's 128, and R = 1 and 13; then R = 1,
+        # R = 64, a data rank's 32 (2 ranks), the merged scan's 128, and
+        # R = 1 and 13; then R = 1,
         # H = 8, a launch with nothing in it: the floor of a launch's time
         H = 1024
         for R, H_ in (*((r, H) for r in LSTM_ROWS), (1, 8)):
@@ -844,8 +866,8 @@ def train_kernel_phase(sm: Smoke, results: dict) -> None:
         sz = torch.tensor([], dtype=dt).element_size()
 
         # row 2: LSTM gates backward, H = 1024: the train step's R = 64,
-        # the merged scan's 128, and R = 1 and 13; then R = 1, H = 8, a
-        # launch with nothing in it
+        # a data rank's 32, the merged scan's 128, and R = 1 and 13; then
+        # R = 1, H = 8, a launch with nothing in it
         for R, H in (*((r, 1024) for r in LSTM_ROWS), (1, 8)):
             per_set = R * H * 12 * sz
             sets = [lstm_bwd_inputs(torch, gen, sm.dev, R, H, dt)
@@ -867,10 +889,11 @@ def train_kernel_phase(sm: Smoke, results: dict) -> None:
                    lstm.fused_lstm_gates_bwd, lstm.lstm_gates_bwd_plain,
                    sets, per_set, R * H * 40, err)
 
-        # row 4: attention backward, B = 64 and 128, S = 104 (100 live,
-        # one fully masked image), A = 512, H = 1024, nonzero g_alpha
+        # row 4: attention backward, B = 64, a data rank's 32 and the
+        # merged scan's 128, S = 104 (100 live, one fully masked image),
+        # A = 512, H = 1024, nonzero g_alpha
         S, A, H, live = TRAIN_SLOTS, 512, 1024, LIVE_REGIONS
-        for B in (TRAIN_BATCH, 2 * TRAIN_BATCH):
+        for B in (TRAIN_BATCH // 2, TRAIN_BATCH, 2 * TRAIN_BATCH):
             mask = torch.zeros((B, S), device=sm.dev)
             mask[:, :live] = 1.0
             mask[3] = 0.0
@@ -894,9 +917,10 @@ def train_kernel_phase(sm: Smoke, results: dict) -> None:
                    attention.fused_additive_attention_bwd,
                    attention.additive_attention_bwd_plain, sets, bytes_,
                    ops, err)
-            if B == TRAIN_BATCH:
-                # without dv, as the stacked-gradient scan calls it: the
-                # same dkeys, dq and dw, and B S H elements fewer written
+            if B <= TRAIN_BATCH:
+                # without dv, as the stacked-gradient scan calls it (a data
+                # rank's too): the same dkeys, dq and dw, and B S H
+                # elements fewer written
                 check_bwd_without_dv(sm, label, sets[0])
                 record(sm, results, None, f"B={B} S={S} A={A} H={H} "
                        f"without dv", dname,
@@ -905,11 +929,12 @@ def train_kernel_phase(sm: Smoke, results: dict) -> None:
                        partial(attention.additive_attention_bwd_plain,
                                with_dv=False), sets,
                        bytes_ - B * S * H * sz, ops, err)
-                # row 3, the forward, at the train step's shape
+                # row 3, the forward, at the train step's shape and a data
+                # rank's
                 fsets = [a[:5] for a in sets]
                 err = check_fwd(sm, f"fused_additive_attention {dname} "
                                     f"B={B} S={S}", fsets[0], dname, live,
-                                phases=True)
+                                phases=B == TRAIN_BATCH)
                 record(sm, results, None, f"B={B} S={S} A={A} H={H} "
                        f"(train step)", dname,
                        attention.fused_additive_attention,
@@ -953,11 +978,13 @@ def train_kernel_phase(sm: Smoke, results: dict) -> None:
             sm.rejects(f"fused_lstm_gates_bwd {what} {n} with its typical "
                        f"elements 5% off", perturb_typical(w), w, *tols[n])
 
-        # rows 5 and 6: masked cross entropy, N = 64 * 21 and 128 * 21,
-        # V = 8704; about 40% of the rows masked (steps after a caption's
-        # end). The training path feeds float32 logits.
+        # rows 5 and 6: masked cross entropy, N = 64 * 21, a data rank's
+        # 32 * 21 and 128 * 21, V = 8704; about 40% of the rows masked
+        # (steps after a caption's end). The training path feeds float32
+        # logits.
         V = 8704
-        for N in (TRAIN_BATCH * STEPS, 2 * TRAIN_BATCH * STEPS):
+        for N in (TRAIN_BATCH // 2 * STEPS, TRAIN_BATCH * STEPS,
+                  2 * TRAIN_BATCH * STEPS):
             sets = [xent_inputs(torch, gen, sm.dev, N, V, dt)
                     for _ in range(n_sets(N * V * sz))]
             # rows the kernels read: the live rows of an average set
@@ -1014,7 +1041,8 @@ def train_kernel_phase(sm: Smoke, results: dict) -> None:
                    bsets, bwd_bytes, n_live * V * 6, err_b,
                    library=lib_bwd)
             graphs.clear()
-        # row 5's ragged cases: a row alone, 13 rows, the train step's 1344;
+        # row 5's ragged cases: a row alone, 13 rows, a data rank's 672, the
+        # train step's 1344;
         # widths from 128 to 8704 and beyond one batch of loads a thread
         # (20480); targets outside [0, V) in two rows; all rows masked
         for N in XENT_ROWS:
@@ -1030,7 +1058,7 @@ def train_kernel_phase(sm: Smoke, results: dict) -> None:
                                 8704, dt, live=0.0))
 
 
-XENT_ROWS = (1, 13, TRAIN_BATCH * STEPS)
+XENT_ROWS = (1, 13, TRAIN_BATCH // 2 * STEPS, TRAIN_BATCH * STEPS)
 XENT_WIDTHS = (128, 1024, 8704, 20480)
 
 
@@ -1527,6 +1555,7 @@ GT_LAUNCHES = dict(ARGMAX_LAUNCHES, fused_lstm_gates=2 * STEPS,
 REMAT_LAUNCHES = dict(ARGMAX_LAUNCHES, fused_lstm_gates=8 * STEPS,
                       fused_additive_attention=2 * STEPS)
 STEPS_PER_EPOCH = 29000 // TRAIN_BATCH      # Flickr30k's training images
+PARAM_ABS, PARAM_REL = 1e-6, 1e-5            # parameters after one Adam step
 
 
 def c3_config():
@@ -1806,34 +1835,55 @@ def compare_train_paths(sm: Smoke, base, tc, params0, arrays, new_state):
                       f"{worst_l2:.2e} (want <= 1e-4), worst max abs err "
                       f"{worst_max:.2e} of the largest element (want <= "
                       f"1e-3){'; ' + '; '.join(bad) if bad else ''}")
-    # one Adam step each: parameters within 1e-6 + 1e-5 |p|, except where
-    # the two paths' gradients disagree in more than half their size (the
-    # step's sign there, lr * sign(g), is not set by float32 sums); those
-    # elements are counted and must be under 1 in 10^4
     states = {}
     for name, cfg in cfgs.items():
         states[name] = new_state()
         step = make_train_step(cfg, tc, STEPS_PER_EPOCH, device=DEVICE)
         step(states[name], arrays, None)
+    adam_step_close(sm, "train float32 kernel vs plain path",
+                    dict(tree_items(states["kernel"].params)),
+                    dict(tree_items(states["plain"].params)),
+                    grads["kernel"], grads["plain"])
+
+
+def adam_step_close(sm: Smoke, label, params, want, grads, want_grads,
+                    adam=None):
+    """One Adam step each from the same parameters: parameters within
+    PARAM_ABS + PARAM_REL |p|, except where the two sides' gradients
+    disagree in more than half their size (the step's sign there, lr *
+    sign(g), is not set by float32 sums); those elements are counted and
+    must be under 1 in 10^4. Each argument maps a tree path to a tensor.
+
+    `adam` = (lr, eps): the step is Adam's first, lr * g / (|g| + eps),
+    and an element also counts as undetermined where that step, taken at
+    each side's own gradient, differs by more than the tolerance: a
+    gradient of Adam's eps scale (the clipped c3 gradients have many)
+    turns a float32 sum difference that `grad_tol` accepts into a step
+    difference beyond it."""
+    torch = sm.torch
     n_el = n_free = 0
     worst = 0.0
     bad = []
-    pk = dict(tree_items(states["kernel"].params))
-    for k, p in tree_items(states["plain"].params):
-        d = (pk[k] - p).abs()
-        g_p, g_k = grads["plain"][k], grads["kernel"][k]
+    for k, p in want.items():
+        d = (params[k].to(p.device) - p).abs()
+        g_p, g_k = want_grads[k], grads[k].to(p.device)
+        tol = PARAM_ABS + PARAM_REL * p.abs()
         free = (g_k - g_p).abs() > 0.5 * g_p.abs()
-        ok = (d <= 1e-6 + 1e-5 * p.abs()) | free
+        if adam is not None:
+            lr, eps = adam
+            free |= lr * (g_k / (g_k.abs() + eps)
+                          - g_p / (g_p.abs() + eps)).abs() > tol
+        ok = (d <= tol) | free
         n_el += p.numel()
         n_free += int(free.sum())
         worst = max(worst, float(torch.where(free, 0.0, d).max()))
         if not bool(ok.all()):
-            bad.append(k)
+            bad.append(f"{k} ({int((~ok).sum())} elements)")
     sm.check(not bad and n_free * 1e4 < n_el,
-             f"train float32 kernel vs plain path: parameters after one "
-             f"Adam step, max abs err {worst:.2e} (want <= 1e-6 + 1e-5 |p|) "
-             f"over {n_el} elements, {n_free} with an undetermined step "
-             f"sign (want < 1e-4 of them){'; ' + ', '.join(bad) if bad else ''}")
+             f"{label}: parameters after one Adam step, max abs err "
+             f"{worst:.2e} (want <= {PARAM_ABS:g} + {PARAM_REL:g} |p|) over "
+             f"{n_el} elements, {n_free} with an undetermined step sign "
+             f"(want < 1e-4 of them){'; ' + ', '.join(bad) if bad else ''}")
 
 
 # ---------------------------------------------------------------------------
@@ -2370,7 +2420,11 @@ def obj_interact_phase(sm: Smoke, smi: str, counts: dict, c3) -> None:
     (the layers and heads its json names): one f32 train step through the
     kernels (counted), its loss and gradients against the plain path's at
     `grad_tol`, and beam-5 serving through Captioner.build, the kernel
-    path's f32 tokens against the plain path's (>= 98% equal)."""
+    path's f32 tokens against the plain path's (>= 98% equal). Then the
+    config in bf16, which follows the JAX package's type promotion:
+    encode_regions float32, a train step and beam-5 serving through the
+    kernels with every launch on float32 inputs, tokens against the plain
+    path's."""
     torch = sm.torch
     import copy
     import dataclasses
@@ -2420,6 +2474,66 @@ def obj_interact_phase(sm: Smoke, smi: str, counts: dict, c3) -> None:
                                      pallas_select=False),
         vocab, beam_size=BEAM, batch_size=BATCH, device=DEVICE),
         reqs, f"{label} beam-5")
+
+    # bf16: the JAX package's transformer adds float32 weights to bf16
+    # activations and jnp promotes, so v_enc, the keys and the decoder are
+    # float32; the port follows, and every kernel launches on float32
+    # inputs (the first tensor of each launch, recorded at build.launch)
+    b16 = dataclasses.replace(base, dtype="bfloat16")
+    enc = core.encode_regions(params0, b16, arrays["feats"],
+                              arrays["box_geom"], arrays["region_cls"],
+                              arrays["region_mask"])
+    sm.check([e.dtype for e in enc] == [torch.float32] * 3
+             and core.decoder_dtype(b16) == torch.float32,
+             f"{label} bf16: encode_regions gives "
+             f"{[str(e.dtype) for e in enc]}, the decoder "
+             f"{core.decoder_dtype(b16)} (the JAX package's promotion)")
+    types = LaunchTypes(sm)
+    state = TrainState.create(copy.deepcopy(params0),
+                              make_optimizer(c3.train, STEPS_PER_EPOCH))
+    step = make_train_step(b16, c3.train, STEPS_PER_EPOCH, device=DEVICE)
+    with types:
+        m, got = counted(sm, counts, lambda: step(state, arrays, gen))
+        check_launches(sm, f"{label} bf16 train step", [got],
+                       ARGMAX_LAUNCHES)
+        cap = Captioner.build(params0, b16, vocab, beam_size=BEAM,
+                              batch_size=BATCH, device=DEVICE)
+        out, got = counted(sm, counts, lambda: cap.caption(reqs))
+    check_launches(sm, f"{label} beam-5 bf16 serving", [got], {
+        "fused_beam_decoder_core": STEPS * n_batches,
+        "fused_topk_lse": STEPS * n_batches})
+    sm.check(math.isfinite(float(m["loss"])) and types.seen == {
+        "float32"}, f"{label} bf16: train step loss {float(m['loss']):.4f}; "
+                    f"the kernels launched on {sorted(types.seen)} inputs "
+                    f"(want float32)")
+    compare_paths(sm, cap, Captioner.build(
+        params0, dataclasses.replace(b16, use_pallas=False,
+                                     pallas_select=False),
+        vocab, beam_size=BEAM, batch_size=BATCH, device=DEVICE),
+        reqs, f"{label} beam-5 bf16 config (float32 decoder)")
+
+
+class LaunchTypes:
+    """While entered, the type of the first tensor of every kernel launch
+    (`build.launch`) is added to `seen`."""
+
+    def __init__(self, sm):
+        self.torch, self.seen = sm.torch, set()
+
+    def __enter__(self):
+        from cvc_tpu_torch.ops.kernels import build
+        self.build, self.real = build, build.launch
+
+        def launch(name, *args):
+            t = next(a for a in args if isinstance(a, self.torch.Tensor))
+            self.seen.add(str(t.dtype).replace("torch.", ""))
+            return self.real(name, *args)
+
+        build.launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        self.build.launch = self.real
 
 
 # ---------------------------------------------------------------------------
@@ -2826,6 +2940,645 @@ def loop_phase(sm: Smoke, smi: str, counts: dict) -> None:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Phase 11: the reference `.pth` importer at flagship width
+
+PTH_VOCAB = 8700                             # checkpoint rows; pads to 8704
+
+
+def reference_state_dict(V: int, E: int, H: int, A: int, D: int,
+                         seed: int) -> dict:
+    """A reference-lineage state_dict (the GVD AttModel's names, torch's
+    [out, in] layout, LSTMCell biases in two halves) made with numpy from
+    a seed, written as a DataParallel run writes it (`module.` prefix) and
+    with one alias of `_ALIASES` (`ctx2att.weight` for `att_v.weight`)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+
+    def w(*shape):
+        return (rng.standard_normal(shape, np.float32)
+                / np.float32(math.sqrt(shape[-1])))
+
+    sd = {"embed.weight": w(V, E), "feat_proj.weight": w(H, D),
+          "feat_proj.bias": w(H) * 0.1,
+          "att_lstm.weight_ih": w(4 * H, 2 * H + E),
+          "att_lstm.weight_hh": w(4 * H, H),
+          "att_lstm.bias_ih": w(4 * H) * 0.1,
+          "att_lstm.bias_hh": w(4 * H) * 0.1,
+          "att_h.weight": w(A, H), "att_h.bias": w(A) * 0.1,
+          "ctx2att.weight": w(A, H), "att_v.bias": w(A) * 0.1,
+          "att_w.weight": w(1, A), "att_w.bias": w(1),
+          "lang_lstm.weight_ih": w(4 * H, 2 * H),
+          "lang_lstm.weight_hh": w(4 * H, H),
+          "lang_lstm.bias_ih": w(4 * H) * 0.1,
+          "lang_lstm.bias_hh": w(4 * H) * 0.1,
+          "logit.weight": w(V, H) * 4, "logit.bias": w(V),
+          "loc_q.weight": w(A, E), "loc_q.bias": w(A) * 0.1,
+          "loc_v.weight": w(A, H), "loc_v.bias": w(A) * 0.1,
+          "loc_w.weight": w(1, A), "loc_w.bias": w(1)}
+    return {f"module.{k}": torch.from_numpy(v) for k, v in sd.items()}
+
+
+def same_tokens(cap_a, cap_b, reqs) -> tuple[int, int]:
+    """(tokens equal, tokens) of two Captioners' decoders on the same
+    packed batches."""
+    match = total = 0
+    for s in range(0, len(reqs), cap_a.batch_size):
+        arrays, _ = cap_a._pack(reqs[s:s + cap_a.batch_size])
+        ta = cap_a.decoder(cap_a.params, arrays)["tokens"]
+        tb = cap_b.decoder(cap_b.params, arrays)["tokens"]
+        match += int((ta == tb).sum())
+        total += ta.numel()
+    return match, total
+
+
+def pth_phase(sm: Smoke, smi: str, counts: dict) -> None:
+    """Phase 11: a reference `.pth` served and trained from. A state_dict
+    at the flagship widths (checkpoint vocabulary PTH_VOCAB, padded to
+    8704; a `module.` prefix and an alias) saved with torch.save:
+    (a) the import tool (`cvc_tpu_torch.tools.import_torch_checkpoint`)
+        writes the npz and the report (timed);
+    (b) `Captioner.from_torch(.pth)` at beam 5, bf16, B 64 on 128 requests
+        (counted): tokens 100% those of `from_torch` of the tool's npz;
+        in float32 the kernel path's tokens >= 98% the plain path's
+        (`compare_paths`), the bf16 share printed;
+    (c) one epoch of the train CLI with `--import_torch` of a state_dict
+        at the c3 widths and the synthetic world's vocabulary (V 128), on
+        the world, through the loop (counted)."""
+    torch = sm.torch
+    import dataclasses
+    import os
+    import tempfile
+
+    from cvc_tpu_torch import train as cli_train
+    from cvc_tpu_torch.config import Config
+    from cvc_tpu_torch.data.vocab import Vocabulary
+    from cvc_tpu_torch.serving import Captioner
+    from cvc_tpu_torch.tools import import_torch_checkpoint as tool
+
+    base = flagship_config()
+    H, E, A, D = (base.rnn_size, base.input_encoding_size,
+                  base.att_hid_size, base.feat_dim)
+    vocab = Vocabulary([f"w{i}" for i in range(PTH_VOCAB - 4)])
+    sm.check(len(vocab) == PTH_VOCAB
+             and vocab.padded_size(128) == base.vocab_size,
+             f"pth: a checkpoint vocabulary of {len(vocab)} pads to "
+             f"{vocab.padded_size(128)}")
+    reqs = make_requests(base, N_REQUESTS, seed=31)
+    n_batches = math.ceil(N_REQUESTS / BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        sd = reference_state_dict(len(vocab), E, H, A, D, seed=30)
+        pth = os.path.join(tmp, "model-best.pth")
+        torch.save({"model": sd}, pth)
+        print(f"pth: reference state_dict of {len(sd)} tensors, "
+              f"{sum(v.numel() for v in sd.values())} parameters, written "
+              f"in {(time.perf_counter() - t0) * 1e3:.1f} ms (host)",
+              flush=True)
+        vocab_file = os.path.join(tmp, "vocab.json")
+        vocab.save(vocab_file)
+        cfgs = {}
+        for dt in ("bfloat16", "float32"):
+            cfgs[dt] = os.path.join(tmp, f"config_{dt}.json")
+            with open(cfgs[dt], "w") as f:
+                f.write(Config(model=dataclasses.replace(
+                    base, dtype=dt)).to_json())
+
+        # (a) the import tool
+        npz = os.path.join(tmp, "imported.npz")
+        t0 = time.perf_counter()
+        report = tool.main(["--ckpt", pth, "--config_json",
+                            cfgs["float32"], "--out", npz], device=DEVICE)
+        torch.cuda.synchronize()
+        tool_ms = (time.perf_counter() - t0) * 1e3
+        sm.check(report["ckpt_vocab"] == PTH_VOCAB
+                 and report["padded_vocab"] == base.vocab_size
+                 and not report["unmapped"] and len(report["mapped"]) == 25,
+                 f"pth: import tool {tool_ms:.1f} ms: "
+                 f"{len(report['mapped'])} keys mapped, vocab "
+                 f"{report['ckpt_vocab']} -> {report['padded_vocab']}, "
+                 f"dropped {report['dropped']}, zero-filled "
+                 f"{report['zero_filled']}, unmapped {report['unmapped']}")
+
+        # (b) serving from the .pth
+        t0 = time.perf_counter()
+        cap = Captioner.from_torch(pth, cfgs["bfloat16"], vocab_file,
+                                   beam_size=BEAM, batch_size=BATCH,
+                                   device=DEVICE)
+        load_ms = (time.perf_counter() - t0) * 1e3
+        cap_npz = Captioner.from_torch(npz, cfgs["bfloat16"], vocab_file,
+                                       beam_size=BEAM, batch_size=BATCH,
+                                       device=DEVICE)
+        out, got = counted(sm, counts, lambda: cap.caption(reqs))
+        check_launches(sm, "pth: beam-5 bf16 serving from the .pth",
+                       [got], {"fused_beam_decoder_core": STEPS * n_batches,
+                               "fused_topk_lse": STEPS * n_batches})
+        print(f"pth: from_torch(.pth) {load_ms:.1f} ms; launches a beam-5 "
+              f"batch of {BATCH}: "
+              + ", ".join(f"{k} {v // n_batches}" for k, v in got.items()
+                          if v), flush=True)
+        sm.check(len(out) == N_REQUESTS and all(
+            math.isfinite(r["score"]) for r in out),
+            f"pth: {len(out)} captions, finite scores")
+        match, total = same_tokens(cap, cap_npz, reqs)
+        sm.check(match == total, f"pth: beam-5 bf16 tokens of the .pth vs "
+                                 f"the tool's npz: {match}/{total} equal "
+                                 f"(want all)")
+        plain = dataclasses.replace(cap.model_cfg, use_pallas=False,
+                                    pallas_select=False)
+        match, total = same_tokens(cap, Captioner.build(
+            cap.params, plain, vocab, beam_size=BEAM, batch_size=BATCH,
+            device=DEVICE), reqs)
+        print(f"pth: beam-5 bf16 kernel path vs plain path: "
+              f"{match / total:.4f} of tokens equal", flush=True)
+        cap32 = Captioner.from_torch(pth, cfgs["float32"], vocab_file,
+                                     beam_size=BEAM, batch_size=BATCH,
+                                     device=DEVICE)
+        compare_paths(sm, cap32, Captioner.build(
+            cap32.params, dataclasses.replace(
+                cap32.model_cfg, use_pallas=False, pallas_select=False),
+            vocab, beam_size=BEAM, batch_size=BATCH, device=DEVICE),
+            reqs, "pth: beam-5 from the .pth")
+        del cap, cap_npz, cap32
+
+        # (c) the train CLI (in this process, so that its launches are
+        # counted) warm-started from a .pth at the c3 widths
+        c3 = c3_config()
+        world = synthetic_world(c3.model, SYNTH_IMAGES, SYNTH_SEED)
+        m = c3.model
+        small_pth = os.path.join(tmp, "c3.pth")
+        torch.save(reference_state_dict(
+            len(world.vocab), m.input_encoding_size, m.rnn_size,
+            m.att_hid_size, m.feat_dim, seed=32), small_pth)
+        argv = ["--config_json",
+                str(repo_path("configs/c3_flickr_cyclical.json")),
+                "--dataset", "synthetic",
+                "--synthetic_num_images", str(SYNTH_IMAGES),
+                "--synthetic_num_val_images", str(LOOP_VAL_IMAGES),
+                "--batch_size", str(TRAIN_BATCH),
+                "--max_epochs", "1", "--import_torch", small_pth,
+                "--checkpoint_path", os.path.join(tmp, "c3_from_pth")]
+        t0 = time.perf_counter()
+        infos, got = counted(sm, counts,
+                             lambda: cli_train.main(argv, device=DEVICE))
+        # 4 train steps, then one greedy validation batch (the config's
+        # train.beam_size 1): 2 LSTM cells, one attention, the top-k at k 1
+        # a step
+        spe = SYNTH_IMAGES // TRAIN_BATCH
+        want = {k: v * spe for k, v in ARGMAX_LAUNCHES.items()}
+        want["fused_lstm_gates"] += 2 * STEPS
+        want["fused_additive_attention"] += STEPS
+        want["fused_topk_lse"] = STEPS
+        check_launches(sm, "pth: an epoch of the train CLI from a .pth "
+                           "(train steps and one validation pass)", [got],
+                       want)
+        sm.check(infos.get("final_step") == spe and infos.get("epoch") == 1,
+                 f"pth: train CLI --import_torch: {infos} in "
+                 f"{time.perf_counter() - t0:.1f} s")
+
+
+def repo_path(rel: str):
+    """A path of the repository, from this script's directory."""
+    from pathlib import Path
+    return Path(__file__).resolve().parent / rel
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the C++ host libraries
+
+NATIVE_BATCHES = 8                           # batches timed each way
+
+
+def native_phase(sm: Smoke, smi: str, counts: dict, c3, ds,
+                 params0) -> None:
+    """Phase 12: the batch packer and CIDEr-D built from the port's copy
+    of the sources (`csrc/host/`): both must load (no fallback here);
+    `make_batches` packed by C++ bit-equal to numpy's, ms a batch of 64
+    inline and with 4 threads each way; the SCST reward of B 64 sampled
+    and greedy captions by C++ within 1e-9 of Python's, ms each way; and
+    an SCST iteration split into sample, reward and update with the C++
+    reward, from `params0`."""
+    torch = sm.torch
+    from cvc_tpu_torch import native
+    from cvc_tpu_torch.data import pipeline
+    from cvc_tpu_torch.data.pipeline import make_batches, num_batches
+    from cvc_tpu_torch.evaluation.cider import CiderD, document_frequency
+    from cvc_tpu_torch.evaluation.tokenizer import ptb_tokenize
+    from cvc_tpu_torch.training.optimizer import make_optimizer
+    from cvc_tpu_torch.training.scst import (ScstRewarder, make_scst_sampler,
+                                             make_scst_step)
+    from cvc_tpu_torch.training.train_state import TrainState
+
+    ok = native.available() and native.cider_available()
+    sm.check(ok, f"native: the packer and CIDEr-D are loaded (built at the "
+                 f"start) {native.build_errors or ''}")
+    if not ok:
+        return
+    base = c3.model
+    fields = ("feats", "box_geom", "region_cls", "region_mask", "tokens",
+              "token_mask", "example_idx", "valid")
+    a = list(make_batches(ds, base, TRAIN_BATCH, seed=3, prefetch=0))
+    pipeline._USE_NATIVE_DEFAULT = True
+    try:
+        b = list(make_batches(ds, base, TRAIN_BATCH, seed=3, prefetch=0))
+    finally:
+        pipeline._USE_NATIVE_DEFAULT = False
+    same = len(a) == len(b) and all(
+        getattr(x, f).dtype == getattr(y, f).dtype
+        and (getattr(x, f) == getattr(y, f)).all()
+        for x, y in zip(a, b) for f in fields)
+    sm.check(same, f"native: {len(b)} batches of {TRAIN_BATCH} packed by "
+                   f"C++ bit-equal to numpy's")
+    for label, kw in (("inline", dict(prefetch=0)),
+                      ("4 threads", dict(prefetch=4, num_workers=4))):
+        ms = {}
+        for use in (False, True):
+            pipeline._USE_NATIVE_DEFAULT = use
+            try:
+                n, t0 = 0, time.perf_counter()
+                for _ in make_batches(ds, base, TRAIN_BATCH, seed=4, **kw):
+                    n += 1
+                ms[use] = (time.perf_counter() - t0) * 1e3 / n
+            finally:
+                pipeline._USE_NATIVE_DEFAULT = False
+        print(f"native: make_batches {label}: C++ {ms[True]:.2f} ms, numpy "
+              f"{ms[False]:.2f} ms a batch of {TRAIN_BATCH} (host) on {smi}",
+              flush=True)
+
+    # the SCST reward: C++ against Python on the same captions
+    spe = num_batches(ds, TRAIN_BATCH)
+    state = TrainState.create(detached_copy(params0),
+                              make_optimizer(c3.train, spe))
+    sampler = make_scst_sampler(base, base.seq_length, device=DEVICE)
+    step = make_scst_step(base, c3.train, spe, device=DEVICE)
+    refs_all = {ex.image_id: ex.captions for ex in ds.examples}
+    rewarder = ScstRewarder(refs_all)
+    py = ScstRewarder(refs_all)
+    py.scorer = CiderD(corpus_df=document_frequency(
+        list(py._ref_cache.values())))
+    sm.check(rewarder.scorer.native, "native: the SCST rewarder scores "
+                                     "through C++")
+    g = torch.Generator(device=sm.dev).manual_seed(33)
+    batch = a[0]
+    arrays = pipeline.to_device(batch.model_inputs(), DEVICE)
+    image_ids = [ds.get(int(i)).image_id for i in batch.example_idx]
+    refs = {i: refs_all[i] for i in image_ids}
+    out = sampler(state.params, arrays, g)
+    toks = torch.stack([out["sample_tokens"],
+                        out["greedy_tokens"]]).cpu().numpy()
+    # the scores themselves (float64), on the captions the rewarder scores
+    worst = 0.0
+    for row in toks:
+        sents = ds.vocab.decode_sequence(row)
+        cands = {f"c{i}": " ".join(ptb_tokenize(x))
+                 for i, x in enumerate(sents)}
+        crefs = {f"c{i}": rewarder._refs_tok(image_ids[i], refs[image_ids[i]])
+                 for i in range(len(sents))}
+        _, got = rewarder.scorer.compute_score(cands, crefs)
+        _, want = py.scorer.compute_score(cands, crefs)
+        worst = max(worst, max(abs(got[k] - want[k]) for k in want))
+    sm.check(worst <= 1e-9,
+             f"native: CIDEr-D of {toks.size // toks.shape[-1]} sampled and "
+             f"greedy captions, C++ vs Python max_abs_err {worst:.3e} "
+             f"(want <= 1e-9)")
+    t_rw = {"C++": [], "Python": []}
+    for _ in range(TIMED_ITERS):
+        for name, rw in (("C++", rewarder), ("Python", py)):
+            t0 = time.perf_counter()
+            for i in (0, 1):
+                rw.rewards(ds.vocab, toks[i], image_ids, refs)
+            t_rw[name].append((time.perf_counter() - t0) * 1e3)
+    print(f"native: SCST reward of B {TRAIN_BATCH} (sampled + greedy): "
+          f"C++ {statistics.median(t_rw['C++']):.2f} ms, Python "
+          f"{statistics.median(t_rw['Python']):.2f} ms (host, median of "
+          f"{TIMED_ITERS}) on {smi}", flush=True)
+
+    split = {"sample": [], "reward": [], "update": []}
+    for _ in range(TIMED_ITERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sampler(state.params, arrays, g)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        toks = torch.stack([out["sample_tokens"],
+                            out["greedy_tokens"]]).cpu().numpy()
+        r_s = rewarder.rewards(ds.vocab, toks[0], image_ids, refs)
+        r_g = rewarder.rewards(ds.vocab, toks[1], image_ids, refs)
+        adv = torch.from_numpy(r_s - r_g).to(sm.dev)
+        t2 = time.perf_counter()
+        step(state, arrays, out["sample_tokens"], adv, g)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for k, t in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
+            split[k].append(t * 1e3)
+    total = [sum(x) for x in zip(*split.values())]
+    print(f"native: SCST iteration B={TRAIN_BATCH} with the C++ reward: "
+          f"{statistics.median(total):.2f} ms (median of {TIMED_ITERS}): "
+          + ", ".join(f"{k} {statistics.median(v):.2f}"
+                      for k, v in split.items())
+          + f" ms on {smi}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: data and vocabulary-head parallelism over ranks
+
+PARALLEL_TIMEOUT = 600.0                     # seconds before ranks stop
+RANK_TIMED = 6                               # warm steps timed a rank
+
+
+class Collect(Smoke):
+    """A rank's Smoke: checks are kept, not printed, for the parent."""
+
+    def __init__(self, torch):
+        super().__init__(torch)
+        self.checks: list = []
+
+    def check(self, ok: bool, what: str) -> None:
+        self.checks.append((bool(ok), what))
+
+
+def host_batch(cfg, seed: int) -> dict:
+    """`train_batch`'s arrays, in numpy."""
+    import torch
+    return {k: v.cpu().numpy() for k, v in
+            train_batch(torch, cfg, seed).items()}
+
+
+def synced_ms(torch, fn) -> float:
+    """ms of fn() on the host's clock, the card synchronized before and
+    after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def spread(ms: list) -> str:
+    return (f"median {statistics.median(ms):.2f} ms (range {min(ms):.2f}-"
+            f"{max(ms):.2f} over {len(ms)})")
+
+
+def rank_step(sm, counts, cfg, tc, params0, arrays, seed, mesh):
+    """One train step of `cfg` from `params0` on `arrays` (the whole batch;
+    with `mesh`, this rank's rows of it), then one untimed warm step and
+    RANK_TIMED timed ones: (loss, the first step's clipped gradients and
+    parameters after Adam as whole trees, the warm steps' ms, launches of
+    the first step, ms of each all-reduce of the gradients over the data
+    group alone after the timed steps (empty without one))."""
+    torch = sm.torch
+    import copy
+
+    from cvc_tpu_torch.data.pipeline import to_device
+    from cvc_tpu_torch.training.optimizer import make_optimizer
+    from cvc_tpu_torch.training.step import make_train_step
+    from cvc_tpu_torch.training.train_state import TrainState, tree_items
+
+    opt = make_optimizer(tc, STEPS_PER_EPOCH)
+    state = TrainState.create(copy.deepcopy(params0), opt)
+    if mesh is not None:
+        state = mesh.split_state(state, make_optimizer(tc, STEPS_PER_EPOCH))
+        arrays = mesh.shard_batch(arrays)
+    t = to_device(arrays, DEVICE)
+    step = make_train_step(cfg, tc, STEPS_PER_EPOCH, DEVICE, mesh=mesh)
+    gen = torch.Generator(device=sm.dev).manual_seed(seed)
+    m, got = counted(sm, counts, lambda: step(state, t, gen))
+    grads = {k: p.grad.clone() for k, p in tree_items(state.params)}
+    params = state.params
+    if mesh is not None and mesh.model > 1:
+        head = mesh.join_params({"logit": {"w": grads["logit/w"],
+                                           "b": grads["logit/b"]}})["logit"]
+        grads["logit/w"], grads["logit/b"] = head["w"], head["b"]
+        params = mesh.join_params(params)
+    params = {k: p.detach().clone() for k, p in tree_items(params)}
+    loss = float(m["loss"])
+    ms = [synced_ms(torch, lambda: step(state, t, gen))
+          for _ in range(RANK_TIMED + 1)][1:]
+    reduce_ms = ([synced_ms(torch, lambda: mesh.reduce_grads(state.leaves))
+                  for _ in range(RANK_TIMED)]
+                 if mesh is not None and mesh.data_group is not None else [])
+    return loss, grads, params, ms, got, reduce_ms
+
+
+def _parallel_rank(rank, world):
+    """One of two ranks that share the card over gloo: every check of
+    `parallel_phase`, each against the one-process run on the same card.
+    Returns the checks, the launch counts and printed lines."""
+    import dataclasses
+
+    import torch
+
+    from cvc_tpu_torch.data.device_data import (DeviceDataset,
+                                                ShardedDeviceDataset)
+    from cvc_tpu_torch.data.pipeline import make_batches, to_device
+    from cvc_tpu_torch.evaluation.evaluator import generate_split
+    from cvc_tpu_torch.models import core
+    from cvc_tpu_torch.parallel.mesh import make_mesh
+    from cvc_tpu_torch.training import scst as scst_lib
+    from cvc_tpu_torch.training.optimizer import make_optimizer
+    from cvc_tpu_torch.training.step import make_resident_train_step
+    from cvc_tpu_torch.training.train_state import TrainState, tree_items
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sm = Collect(torch)
+    counts, lines = {}, []
+    c3 = c3_config()
+    tc = c3.train
+    params0 = core.init_params(torch.Generator().manual_seed(0), c3.model,
+                               DEVICE)
+    arrays = host_batch(c3.model, seed=41)
+    meshes = {"2 data ranks": make_mesh(2, 1, sm.dev),
+              "1 data x 2 model ranks": make_mesh(2, 2, sm.dev)}
+    for drop in (0.5, 0.0):
+        cfg = dataclasses.replace(c3.model, drop_prob_lm=drop)
+        want = rank_step(sm, {}, cfg, tc, params0, arrays, 42, None)
+        for name, mesh in meshes.items():
+            label = (f"parallel rank {rank}, {name}, c3 f32 step of "
+                     f"{TRAIN_BATCH}, dropout {drop}")
+            loss, grads, params, ms, got, reduce_ms = rank_step(
+                sm, counts, cfg, tc, params0, arrays, 42, mesh)
+            check_loss_and_grads(sm, f"{label} vs one process", loss, grads,
+                                 want[0], want[1])
+            adam_step_close(sm, f"{label} vs one process", params, want[2],
+                            grads, want[1], (tc.learning_rate, tc.adam_eps))
+            lines.append(
+                f"{label}: warm step {spread(ms)}; one process on the same "
+                f"card while the other rank runs it too {spread(want[3])}; "
+                + (f"the gradient all-reduce alone {spread(reduce_ms)}; "
+                   if reduce_ms else "") + f"launches {got}")
+    del params0
+
+    # the resident step over a sharded dataset, an SCST iteration and a
+    # validation pass, on the synthetic world (V 128)
+    dp = meshes["2 data ranks"]
+    world = synthetic_world(c3.model, SYNTH_IMAGES, SYNTH_SEED)
+    cfg = dataclasses.replace(c3.model,
+                              vocab_size=world.vocab.padded_size(128))
+    w0 = core.init_params(torch.Generator().manual_seed(1), cfg, DEVICE)
+
+    def fresh(mesh=None):
+        state = TrainState.create(core._map(w0, lambda x: x.clone()),
+                                  make_optimizer(tc, 4))
+        return (state if mesh is None
+                else mesh.split_state(state, make_optimizer(tc, 4)))
+
+    sharded = ShardedDeviceDataset(world, cfg, dp, device=DEVICE)
+    plain = DeviceDataset(world, cfg, device=DEVICE)
+    idx = next(sharded.epoch_batches(TRAIN_BATCH, seed=0))
+    b = TRAIN_BATCH // 2
+    gidx = [sharded.pair_shards[s][int(i)]
+            for s in range(2) for i in idx[s * b:(s + 1) * b]]
+    res = {}
+    for mesh, data, index in ((None, plain.data, plain.upload_index(gidx)),
+                              (dp, sharded.data, sharded.upload_index(idx))):
+        state = fresh(mesh)
+        step = make_resident_train_step(cfg, tc, 4, DEVICE, mesh=mesh)
+        gen = torch.Generator(device=sm.dev).manual_seed(43)
+        m, got = counted(sm, counts if mesh else {},
+                         lambda: step(state, data, index, gen))
+        res[mesh is None] = (float(m["loss"]),
+                             {k: p.grad for k, p in tree_items(state.params)},
+                             {k: p.detach()
+                              for k, p in tree_items(state.params)})
+    label = (f"parallel rank {rank}, resident step over a 2-shard "
+             f"ShardedDeviceDataset (dropout 0.5)")
+    check_loss_and_grads(sm, f"{label} vs one process", res[False][0],
+                         res[False][1], res[True][0], res[True][1])
+    adam_step_close(sm, label, res[False][2], res[True][2], res[False][1],
+                    res[True][1], (tc.learning_rate, tc.adam_eps))
+
+    batch = next(make_batches(world, cfg, TRAIN_BATCH, seed=2, prefetch=0))
+    refs = {ex.image_id: ex.captions for ex in world.examples}
+    rewarder = scst_lib.ScstRewarder(refs)
+    res = {}
+    for mesh in (None, dp):
+        state = fresh(mesh)
+        inputs = batch.model_inputs()
+        if mesh is not None:
+            inputs = mesh.shard_batch(inputs)
+        t = to_device(inputs, DEVICE)
+        sampler = scst_lib.make_scst_sampler(cfg, cfg.seq_length,
+                                             device=DEVICE, mesh=mesh)
+        step = scst_lib.make_scst_step(cfg, tc, 4, xe_weight=SCST_XE_WEIGHT,
+                                       device=DEVICE, mesh=mesh)
+        seen = []
+
+        def rec(*a, sampler=sampler, seen=seen):
+            out = sampler(*a)
+            seen.append(out["sample_tokens"])
+            return out
+
+        m, got = counted(sm, counts if mesh else {}, lambda: (
+            scst_lib.scst_train_batch(
+                state, t, batch, world, rec, step, rewarder,
+                torch.Generator(device=sm.dev).manual_seed(44),
+                torch.Generator(device=sm.dev).manual_seed(45), mesh=mesh)))
+        toks = seen[0] if mesh is None else mesh.gather_rows(seen[0])
+        params, grads = state.params, {k: p.grad for k, p in
+                                       tree_items(state.params)}
+        if mesh is not None and mesh.model > 1:
+            params = mesh.join_params(params)
+            head = mesh.join_params({"logit": {"w": grads["logit/w"],
+                                               "b": grads["logit/b"]}})
+            grads["logit/w"] = head["logit"]["w"]
+            grads["logit/b"] = head["logit"]["b"]
+        res[mesh is None] = (m, toks, {k: p.detach()
+                                       for k, p in tree_items(params)},
+                             grads)
+    label = f"parallel rank {rank}, SCST iteration (xe_weight 0.5)"
+    sm.check(bool((res[False][1] == res[True][1]).all()),
+             f"{label}: sampled tokens equal the one process's")
+    rel = max(abs(float(res[False][0][k]) - float(v))
+              / max(abs(float(v)), 1e-12) for k, v in res[True][0].items())
+    sm.check(rel <= 1e-5, f"{label}: metrics within 1e-5 relative "
+                          f"(worst {rel:.2e})")
+    adam_step_close(sm, label, res[False][2], res[True][2], res[False][3],
+                    res[True][3], (tc.learning_rate, tc.adam_eps))
+
+    val = synthetic_world(cfg, LOOP_VAL_IMAGES, SYNTH_SEED + 1)
+    e_cfg = dataclasses.replace(c3.eval, beam_size=BEAM,
+                                sample_method="beam",
+                                max_length=cfg.seq_length)
+    preds = {}
+    for mesh in (None, dp):
+        (p, _, _), got = counted(sm, counts if mesh else {}, lambda: (
+            generate_split(w0, cfg, e_cfg, val, TRAIN_BATCH, device=DEVICE,
+                           mesh=mesh)))
+        preds[mesh is None] = p
+    sm.check(preds[False] == preds[True] and len(preds[True]) == len(val),
+             f"parallel rank {rank}, beam-5 validation pass of {len(val)} "
+             f"images: predictions equal the one process's")
+    return {"checks": sm.checks, "counts": counts, "lines": lines}
+
+
+def _nccl_rank(rank, world, root):
+    """A world of one over NCCL: one epoch of `train` on the synthetic
+    world, in the process group."""
+    import torch
+    import torch.distributed as dist
+
+    from cvc_tpu_torch.training.loop import train
+    torch.cuda.set_device(0)
+    counts: dict = {}
+    sm = Collect(torch)
+    cfg = loop_config(root, "nccl", max_epochs=1)
+    infos, got = counted(sm, counts, lambda: train(cfg, device=DEVICE))
+    return {"infos": infos, "counts": got,
+            "backend": dist.get_backend()}
+
+
+def parallel_phase(sm: Smoke, smi: str, counts: dict) -> None:
+    """Phase 13: `parallel/` on the card. Two ranks over gloo share it
+    (NCCL refuses two ranks on one card): each holds against the
+    one-process run of the same 64 images, on the same card, a c3 f32
+    train step with dropout 0.5 and then off, over 2 data ranks (32 + 32)
+    and over 1 data x 2 model ranks (the vocabulary head split on V):
+    loss within 1e-5 relative, gradients at `grad_tol` with the 5%-off
+    copies rejected, parameters after Adam within 1e-6 + 1e-5|p|; then
+    (at V 128, on the synthetic world) a resident step over a 2-shard
+    ShardedDeviceDataset, an SCST iteration with the XE blend, and a
+    beam-5 validation pass (predictions equal). Then a world of one over
+    NCCL trains one epoch through `train`. Launches per rank per step are
+    printed and added to the main path's counts; ms of RANK_TIMED warm
+    steps a rank, and of the gradient all-reduce alone, are printed;
+    per-card scaling is not measured (one card)."""
+    import tempfile
+
+    from cvc_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    outs = launch.spawn(_parallel_rank, 2, (), backend="gloo",
+                        timeout=PARALLEL_TIMEOUT)
+    print(f"parallel: two ranks over gloo on one card, "
+          f"{time.perf_counter() - t0:.1f} s on {smi}", flush=True)
+    for r, out in enumerate(outs):
+        for line in out["lines"]:
+            print("parallel: " + line, flush=True)
+        for ok, what in out["checks"]:
+            sm.check(ok, what)
+        for k, n in out["counts"].items():
+            counts[k] = counts.get(k, 0) + n
+    per_rank = outs[0]["counts"]
+    missing = [n for n, _, _ in KERNEL_ROWS[:6] if not per_rank.get(n)]
+    sm.check(not missing, f"parallel: rows 1-6 launched on each rank "
+                          f"{'(missing ' + ', '.join(missing) + ')' if missing else ''}")
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        out = launch.spawn(_nccl_rank, 1, (root,), backend="nccl",
+                           timeout=PARALLEL_TIMEOUT)[0]
+        for k, n in out["counts"].items():
+            counts[k] = counts.get(k, 0) + n
+        sm.check(out["backend"] == "nccl"
+                 and out["infos"].get("epoch") == 1,
+                 f"parallel: a world of one over {out['backend']} trained "
+                 f"one epoch through train(): {out['infos']} in "
+                 f"{time.perf_counter() - t0:.1f} s, launches "
+                 f"{out['counts']}")
+
+
 KERNEL_ROWS = [
     ("fused_lstm_gates", "cvc_tpu_torch/csrc/lstm.cu",
      "cvc_tpu/ops/pallas/lstm.py:25"),
@@ -2876,6 +3629,13 @@ def main(argv: list[str]) -> int:
           f"({'compiled' if build.build_seconds else 'already built'})",
           flush=True)
 
+    from cvc_tpu_torch import native
+    t0 = time.perf_counter()
+    sm.check(native.available() and native.cider_available(),
+             f"native: the C++ packer and CIDEr-D built from "
+             f"cvc_tpu_torch/csrc/host/ in {time.perf_counter() - t0:.1f} s: "
+             f"{native.build_commands} {native.build_errors or ''}")
+
     if argv:
         rates = serving_rates(sm, smi)
         print(json.dumps({"serving_rates": rates}), flush=True)
@@ -2894,6 +3654,9 @@ def main(argv: list[str]) -> int:
     scst_phase(sm, smi, counts, c3, ds, xe_params)
     obj_interact_phase(sm, smi, counts, c3)
     loop_phase(sm, smi, counts)
+    pth_phase(sm, smi, counts)
+    native_phase(sm, smi, counts, c3, ds, xe_params)
+    parallel_phase(sm, smi, counts)
 
     kernels = []
     for name, source, replaces in KERNEL_ROWS:

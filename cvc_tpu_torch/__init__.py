@@ -15,9 +15,12 @@ sampling and SCST (`training.scst`), the region transformer
 (`evaluation/`: the scorers, grounding, `evaluator`, `probes`),
 checkpoints (`training.checkpoint`), the device-resident dataset
 (`data.device_data`), the epoch loop (`training.loop.train`), the CLIs
-(`python -m cvc_tpu_torch.train`, `python -m cvc_tpu_torch.eval`) and
-`serving.Captioner.from_checkpoint`. Entry points run on CUDA unless the
-caller passes device="cpu".
+(`python -m cvc_tpu_torch.train`, `python -m cvc_tpu_torch.eval`),
+`serving.Captioner.from_checkpoint`, the reference `.pth` importer
+(`models.torch_import`, `tools.import_torch_checkpoint`), the C++ batch
+packer and CIDEr-D (`native`), data and vocabulary-head parallelism over
+`torch.distributed` ranks (`parallel`) and the utilities (`utils`).
+Entry points run on CUDA unless the caller passes device="cpu".
 """
 
 __version__ = "0.1.0"

@@ -13,8 +13,8 @@ one copy) and per-pair caption tensors:
     pair_tokens[P, T]      pair_tmask [P, T]   pair_example [P]
     pair_gt_region [P, T]? (supervised grounding)
 
-The JAX package's `ShardedDeviceDataset` (one shard a device of a mesh)
-waits for multi-GPU support.
+`ShardedDeviceDataset` splits the dataset over the data ranks of a
+`parallel.mesh.Mesh`: each rank holds its own shard on its own card.
 """
 
 from __future__ import annotations
@@ -127,6 +127,115 @@ class DeviceDataset:
         `gather_batch` takes."""
         return torch.from_numpy(np.asarray(idx, np.int64)).to(
             self.device, non_blocking=True)
+
+
+class ShardedDeviceDataset:
+    """The device-resident dataset split over the data ranks of `mesh`, with
+    the JAX package's layout: examples go round-robin to the n data
+    shards, pairs follow their example, and each shard's arrays are padded
+    to the largest shard's rows (E_s examples, P_s pairs). This rank keeps
+    only its shard, uploaded once to `device` (`data`); its `pair_example`
+    holds shard-local example ids.
+
+    `epoch_batches` yields the JAX package's [B] index vectors: chunk k of
+    B / n holds shard k's local pair ids (each shard shuffles its own
+    pairs), and an epoch is as long as every shard can fill.
+    `upload_index` sends this rank's chunk, which `gather_batch` takes
+    with `data`: no collective on the feeding path. Raises without a GPU
+    unless device="cpu"."""
+
+    def __init__(self, ds: CaptionDataset, model_cfg, mesh,
+                 with_gt_region: bool = False, device="cuda"):
+        self.device = resolve_device(device)
+        data, pairs, tpp = _pack_host(ds, model_cfg, with_gt_region)
+        n = mesh.data
+        E = data["ex_feats"].shape[0]
+        ex_shards = [list(range(s, E, n)) for s in range(n)]
+        ex_local = np.full(E, -1, np.int64)
+        for exs in ex_shards:
+            for j, e in enumerate(exs):
+                ex_local[e] = j
+        pair_shards: list[list[int]] = [[] for _ in range(n)]
+        for p, (ei, _ci) in enumerate(pairs):
+            pair_shards[ei % n].append(p)
+        self.E_s = E_s = max(len(x) for x in ex_shards)
+        self.P_s = P_s = max(len(x) for x in pair_shards)
+        self.real_pairs = [len(x) for x in pair_shards]
+        self.n_shards = n
+        self.shard = s = mesh.data_rank
+        self.num_pairs = len(pairs)
+        self.pair_shards = pair_shards
+        self._pair_example_orig = np.asarray([ei for (ei, _ci) in pairs],
+                                             np.int64)
+
+        def block(a, rows, count, fill=0):
+            out = np.full((count,) + a.shape[1:], fill, a.dtype)
+            out[:len(rows)] = a[rows]
+            return out
+
+        local = {}
+        for k, v in data.items():
+            if k == "pair_example":
+                local[k] = block(ex_local[v].astype(np.int32),
+                                 pair_shards[s], P_s)
+            elif k.startswith("ex_"):
+                local[k] = block(v, ex_shards[s], E_s)
+            else:
+                local[k] = block(v, pair_shards[s], P_s,
+                                 fill=-1 if k == "pair_gt_region" else 0)
+        self.data = {k: torch.from_numpy(v).to(self.device)
+                     for k, v in local.items()}       # one upload
+        # host-side stats in the stacked layout (logging without syncs)
+        self.tokens_per_pair = np.concatenate(
+            [block(tpp, pair_shards[k], P_s) for k in range(n)])
+
+    def epoch_batches(self, batch_size: int, seed: int):
+        """Yield [B] int32 local pair-index vectors (chunk k -> shard k),
+        the JAX package's for the seed."""
+        n = self.n_shards
+        if batch_size % n:
+            raise ValueError(f"batch_size {batch_size} not divisible by "
+                             f"data axis {n}")
+        b = batch_size // n
+        rng = np.random.default_rng(seed)
+        perms = [rng.permutation(r) for r in self.real_pairs]
+        steps = min(r // b for r in self.real_pairs)
+        for i in range(steps):
+            chunks = [perms[k][i * b:(i + 1) * b] for k in range(n)]
+            yield np.concatenate(chunks).astype(np.int32)
+
+    def upload_index(self, idx: np.ndarray) -> torch.Tensor:
+        """This rank's chunk of `idx` as the int64 tensor on the device
+        that `gather_batch` takes with `data`."""
+        b = len(idx) // self.n_shards
+        local = idx[self.shard * b:(self.shard + 1) * b]
+        return torch.from_numpy(np.asarray(local, np.int64)).to(
+            self.device, non_blocking=True)
+
+    def batch_tokens(self, idx: np.ndarray) -> float:
+        """Supervised-token count of the whole batch (host-side)."""
+        b = len(idx) // self.n_shards
+        g = idx.astype(np.int64).copy()
+        for k in range(self.n_shards):
+            g[k * b:(k + 1) * b] += k * self.P_s
+        return float(self.tokens_per_pair[g].sum())
+
+    def example_ids(self, idx, local: bool = False) -> list[int]:
+        """Original dataset example index of each pair of a batch: chunk k
+        of `idx` holds shard k's local pair ids. `local`: this rank's chunk
+        only."""
+        b = len(idx) // self.n_shards
+        shards = [self.shard] if local else range(self.n_shards)
+        out = []
+        for k in shards:
+            for i in idx[k * b:(k + 1) * b]:
+                orig_pair = self.pair_shards[k][int(i)]
+                out.append(int(self._pair_example_orig[orig_pair]))
+        return out
+
+    def nbytes(self) -> int:
+        """Bytes of this rank's shard on its device."""
+        return sum(v.numel() * v.element_size() for v in self.data.values())
 
 
 def gather_batch(data: dict, idx: torch.Tensor) -> dict:

@@ -16,13 +16,15 @@ A background thread (or `num_workers` threads) assembles batches ahead of
 the consumer. `to_device` moves a batch's model inputs to the device as
 the tensors `models/cyclical.py` takes.
 
-Batches are assembled in numpy only: the reference's C++ packer
-(`native/pack.cc`, opt-in there under CVC_NATIVE_PACK=1) is not ported
-yet, so that switch does nothing here.
+Under CVC_NATIVE_PACK=1 (or `_assemble(..., use_native=True)`) a batch's
+regions and tokens are packed by the C++ library of `native.py` (OpenMP,
+one pass), with the same arrays bit for bit; where it does not load,
+numpy packs, as in the JAX package. The switch is opt-in there too.
 """
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 from dataclasses import dataclass
@@ -167,11 +169,18 @@ def pad_regions_into(out_f: np.ndarray, out_g: np.ndarray, out_c: np.ndarray,
     out_g[...] = box_geometry(out_g[:, :4])
 
 
+_USE_NATIVE_DEFAULT = os.environ.get("CVC_NATIVE_PACK", "0") == "1"
+
+
 def _assemble(ds: CaptionDataset, pairs: list[tuple[int, int]],
-              model_cfg, batch_size: int,
+              model_cfg, batch_size: int, use_native: bool | None = None,
               with_gt_region: bool = False) -> Batch:
     """One batch of (example, caption) pairs, padded to batch_size by
-    repeating row 0 (marked invalid)."""
+    repeating row 0 (marked invalid). `use_native` (default: the
+    CVC_NATIVE_PACK environment variable) packs with the C++ library
+    where it loads."""
+    if use_native is None:
+        use_native = _USE_NATIVE_DEFAULT
     S = model_cfg.num_frames * model_cfg.num_regions
     T = model_cfg.max_tokens
     D = model_cfg.feat_dim
@@ -187,7 +196,18 @@ def _assemble(ds: CaptionDataset, pairs: list[tuple[int, int]],
     rmask = np.zeros((B, S), dtype=np.float32)
     tokens = np.zeros((B, T), dtype=np.int32)
     tmask = np.zeros((B, T), dtype=np.float32)
-    for j, (ei, ci) in enumerate(pairs):
+    if use_native and pairs and _pack_native(ds, pairs, model_cfg, feats,
+                                             geom, cls, rmask, tokens, tmask):
+        for j, (ei, ci) in enumerate(pairs):
+            ex = ds.get(ei)
+            if gfeat is not None and ex.global_feat is not None:
+                g = ex.global_feat[:Dg]
+                gfeat[j, :g.shape[0]] = g
+            eidx[j], cidx[j], valid[j] = ei, ci, 1.0
+        pairs_np = []               # packed: the numpy loop below is skipped
+    else:
+        pairs_np = pairs
+    for j, (ei, ci) in enumerate(pairs_np):
         ex = ds.get(ei)
         pad_regions_into(feats[j], geom[j], cls[j], rmask[j], ex.features,
                          ex.boxes, ex.classes, model_cfg.num_frames,
@@ -209,6 +229,32 @@ def _assemble(ds: CaptionDataset, pairs: list[tuple[int, int]],
             gt_region[j] = _gt_region_row(ds.get(ei), ci, geom[j], rmask[j], T)
     return Batch(feats, geom, cls, rmask, tokens, tmask, gfeat, eidx, cidx,
                  valid, gt_region)
+
+
+def _pack_native(ds, pairs, model_cfg, feats, geom, cls, rmask, tokens,
+                 tmask) -> bool:
+    """Pack the pairs' regions and tokens into the first len(pairs) rows of
+    the batch arrays with the C++ packer, in place; False (nothing
+    written) where the library does not load."""
+    from cvc_tpu_torch import native
+    from cvc_tpu_torch.data.vocab import (BOS_ID, EOS_ID, UNK_ID,
+                                          simple_tokenize)
+    n = len(pairs)
+    if native.pack_batch_native(
+            [(ds.get(ei).features, ds.get(ei).boxes, ds.get(ei).classes)
+             for ei, _ in pairs],
+            model_cfg.num_frames, model_cfg.num_regions, model_cfg.feat_dim,
+            out=(feats[:n], geom[:n], cls[:n], rmask[:n])) is None:
+        return False
+    id_lists = [[ds.vocab.wtoi.get(w, UNK_ID)
+                 for w in simple_tokenize(ds.get(ei).captions[ci])
+                 [: model_cfg.seq_length]]
+                for ei, ci in pairs]
+    tok = native.pack_tokens_native(id_lists, model_cfg.seq_length,
+                                    model_cfg.max_tokens, BOS_ID, EOS_ID,
+                                    pad=0)
+    tokens[:n], tmask[:n] = tok
+    return True
 
 
 def make_batches(ds: CaptionDataset, model_cfg, batch_size: int,

@@ -10,8 +10,7 @@ twin of the repo root's `eval.py`, with the same flags):
 The model's shapes come from the checkpoint's `config.json`; the eval
 flags and the batch size from the command line. Prints the results as
 JSON. Runs on CUDA; `main(argv, device="cpu")` runs on the CPU.
-`--import_torch` takes an `.npz` (a `.pth` waits for ROADMAP queue 1
-item 7).
+`--import_torch` takes a reference `.pth` or an `.npz`.
 """
 
 import json
@@ -35,7 +34,7 @@ def main(argv=None, device="cuda"):
     cfg = config_from_args(argv)
     if not (cfg.train.start_from or cfg.train.import_torch):
         raise SystemExit("--start_from <checkpoint dir> or "
-                         "--import_torch <.npz> is required")
+                         "--import_torch <.pth/.npz> is required")
     # the training-time config gives the model's shapes; CLI eval flags win
     ckpt_dir = cfg.train.start_from
     if ckpt_dir and os.path.exists(os.path.join(ckpt_dir, "config.json")):
@@ -49,8 +48,8 @@ def main(argv=None, device="cuda"):
     _finalize_model_config(cfg, ds)
 
     if cfg.train.import_torch and not ckpt_dir:
-        eval_params = import_params(cfg.train.import_torch, device)
-        print(f"imported params from {cfg.train.import_torch}", flush=True)
+        eval_params = import_params(cfg.train.import_torch, cfg.model,
+                                    device)
     else:
         params = core.init_params(torch.Generator().manual_seed(0),
                                   cfg.model, device)

@@ -1,5 +1,6 @@
-"""CIDEr-D (the port's own copy of `cvc_tpu/evaluation/cider.py`, pure
-Python).
+"""CIDEr-D (the port's own copy of `cvc_tpu/evaluation/cider.py`): the
+pure-Python scorer, and `CiderDFast`, which scores through the C++
+library of `native.py` where it loads.
 
 TF-IDF weighted n-gram (n = 1..4) cosine similarity with candidate-count
 clipping (the -D variant) and a Gaussian length penalty (sigma 6),
@@ -104,10 +105,11 @@ def document_frequency(reference_sets: list[list[str]], max_n: int = 4):
 
 
 class CiderDFast:
-    """The interface of the reference's CiderDFast (SCST rewards and split
-    evaluation), with the pure-Python scorer above as its only backend:
-    the reference's C++ scorer (`native/cider.cc`, the same math) is not
-    ported yet.
+    """CIDEr-D through the C++ scorer of `native.py` (`csrc/host/cider.cc`,
+    the same math, held to the Python scorer by
+    tests/test_torch_native.py) where it loads, else the pure-Python
+    scorer above: the SCST reward and split evaluation. `native` is the
+    backend in use.
 
     corpus_refs: optional list of reference-sentence lists (one per
     image, already tokenized strings) to precompute the document
@@ -116,11 +118,37 @@ class CiderDFast:
 
     def __init__(self, max_n: int = 4, sigma: float = 6.0,
                  corpus_refs: list | None = None):
+        from cvc_tpu_torch import native
         self.n = max_n
         self.sigma = sigma
-        corpus_df = (document_frequency(corpus_refs, max_n)
-                     if corpus_refs is not None else None)
-        self._py = CiderD(max_n, sigma, corpus_df=corpus_df)
+        self._intern: dict[str, int] = {}
+        self.native = native.cider_available()
+        self._df_handle = None
+        self._py = None
+        if self.native:
+            if corpus_refs is not None:
+                ref_ids = [[self._ids(r) for r in refs]
+                           for refs in corpus_refs]
+                self._df_handle = native.NativeCiderDf(ref_ids)
+        else:
+            corpus_df = (document_frequency(corpus_refs, max_n)
+                         if corpus_refs is not None else None)
+            self._py = CiderD(max_n, sigma, corpus_df=corpus_df)
+
+    def _ids(self, sent: str) -> list[int]:
+        return [self._intern.setdefault(w, len(self._intern))
+                for w in sent.split()]
 
     def compute_score(self, candidates: dict, references: dict):
-        return self._py.compute_score(candidates, references)
+        if not self.native:
+            return self._py.compute_score(candidates, references)
+        from cvc_tpu_torch import native
+        ids = list(candidates.keys())
+        cand_ids = [self._ids(candidates[i]) for i in ids]
+        ref_ids = [[self._ids(r) for r in references[i]] for i in ids]
+        scores = native.cider_score_native(cand_ids, ref_ids,
+                                           sigma=self.sigma, max_n=self.n,
+                                           df=self._df_handle)
+        per_image = {img: float(s) for img, s in zip(ids, scores)}
+        corpus = sum(per_image.values()) / max(len(per_image), 1)
+        return corpus, per_image

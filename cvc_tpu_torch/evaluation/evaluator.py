@@ -9,9 +9,11 @@ are computed at the end. The localizer's β and the teacher-forced α also
 run under `torch.inference_mode`, so parameters that require grad (a
 `TrainState`'s) record no graph.
 
-The JAX package's `mesh` argument (data-parallel validation over a slice)
-waits for multi-GPU support; these functions take none and run on the
-device of the parameters given.
+With `mesh` (`parallel.mesh.Mesh`) validation decodes data-parallel:
+each data rank decodes its rows of every batch and the tokens and
+attention rows are gathered over the data group in split order, so every
+rank holds the predictions, and the scores, of a one-process run. The
+parameters are the whole tree (`mesh.join_params`).
 """
 
 from __future__ import annotations
@@ -50,12 +52,26 @@ def teacher_forced_alphas(params, model_cfg, arrays):
     return alphas
 
 
+def _rank_arrays(batch, device, mesh):
+    """A host batch's model inputs on `device`: this rank's rows with
+    `mesh`."""
+    inputs = batch.model_inputs()
+    if mesh is not None:
+        inputs = mesh.shard_batch(inputs)
+    return to_device(inputs, device)
+
+
+def _whole(x, mesh):
+    return x if mesh is None else mesh.gather_rows(x.contiguous())
+
+
 def generate_split(params, model_cfg, eval_cfg, ds, batch_size: int,
-                   generator=None, device="cuda"):
+                   generator=None, device="cuda", mesh=None):
     """Generate one caption per image. Returns (predictions,
     grounding_samples, references) ready for the scorers. With
     `sample_method='sample'` the draws come from `generator` (a
-    torch.Generator on `device`; default seeded 0). Raises without a GPU
+    torch.Generator on `device`; default seeded 0). With `mesh`, each data
+    rank decodes its rows (see the module doc). Raises without a GPU
     unless device="cpu"."""
     device = resolve_device(device)
     decoder = make_decoder(model_cfg, eval_cfg, device)
@@ -68,9 +84,11 @@ def generate_split(params, model_cfg, eval_cfg, ds, batch_size: int,
     predictions, samples, references = [], [], {}
     for batch in make_batches(ds, model_cfg, batch_size, shuffle=False,
                               drop_last=False, unique_images=True):
-        arrays = to_device(batch.model_inputs(), device)
+        arrays = _rank_arrays(batch, device, mesh)
         if needs_generator:
-            out = decoder(params, arrays, generator)
+            draws = (generator if mesh is None else
+                     mesh.row_draws(generator, arrays["feats"].shape[0]))
+            out = decoder(params, arrays, draws)
         else:
             out = decoder(params, arrays)
         if use_localizer:
@@ -78,8 +96,8 @@ def generate_split(params, model_cfg, eval_cfg, ds, batch_size: int,
                                     out["tokens"])
         else:
             alphas = out["alphas"]
-        tokens = out["tokens"].cpu().numpy()
-        alphas = alphas.float().cpu().numpy()
+        tokens = _whole(out["tokens"], mesh).cpu().numpy()
+        alphas = _whole(alphas.float(), mesh).cpu().numpy()
         sents, word_pos = ds.vocab.decode_sequence_with_pos(tokens)
         for i in range(len(sents)):
             if not batch.valid[i]:
@@ -105,12 +123,16 @@ def generate_split(params, model_cfg, eval_cfg, ds, batch_size: int,
 
 def evaluate_split(params, model_cfg, eval_cfg, ds, batch_size: int,
                    out_path: str | None = None, generator=None,
-                   device="cuda") -> dict:
+                   device="cuda", mesh=None) -> dict:
     """Full protocol: caption metrics + grounding F1 (+ GT-sentence mode
-    when eval_cfg.gt_sentence_mode). Raises without a GPU unless
-    device="cpu"."""
+    when eval_cfg.gt_sentence_mode). With `mesh`, data-parallel; every
+    rank returns the scores (writing `out_path` is rank 0's). Raises
+    without a GPU unless device="cpu"."""
     predictions, samples, references = generate_split(
-        params, model_cfg, eval_cfg, ds, batch_size, generator, device)
+        params, model_cfg, eval_cfg, ds, batch_size, generator, device,
+        mesh)
+    if mesh is not None and mesh.rank != 0:
+        out_path = None
     results = {}
     if eval_cfg.language_eval and predictions:
         results.update(language_eval(predictions, references,
@@ -120,31 +142,32 @@ def evaluate_split(params, model_cfg, eval_cfg, ds, batch_size: int,
         results.pop("per_class", None)
     if eval_cfg.gt_sentence_mode:
         results.update(gt_sentence_attention_eval(
-            params, model_cfg, ds, batch_size, device=device))
+            params, model_cfg, ds, batch_size, device=device, mesh=mesh))
     results["n_images"] = len(predictions)
     return results
 
 
 def gt_sentence_attention_eval(params, model_cfg, ds, batch_size: int,
                                source: str = "decoder",
-                               device="cuda") -> dict:
+                               device="cuda", mesh=None) -> dict:
     """Teacher-forced localization accuracy: run the decode pass on GT
     captions and check the attention at annotated word positions (the
     GT-sentence grounding mode). source='decoder' uses the generation
     attention α; 'localizer' uses the cycle-trained β over the GT words.
-    Raises without a GPU unless device="cpu"."""
+    With `mesh`, data-parallel as `generate_split`. Raises without a GPU
+    unless device="cpu"."""
     device = resolve_device(device)
     samples = []
     for batch in make_batches(ds, model_cfg, batch_size, shuffle=False,
                               drop_last=False):
-        arrays = to_device(batch.model_inputs(), device)
+        arrays = _rank_arrays(batch, device, mesh)
         if source == "localizer":
             # β over the GT words w_1.. (positions align with word_idx)
             alphas = localizer_beta(params, model_cfg, arrays,
                                     arrays["tokens"][:, 1:])
         else:
             alphas = teacher_forced_alphas(params, model_cfg, arrays)
-        alphas = alphas.float().cpu().numpy()
+        alphas = _whole(alphas.float(), mesh).cpu().numpy()
         for i in range(alphas.shape[0]):
             if not batch.valid[i]:
                 continue

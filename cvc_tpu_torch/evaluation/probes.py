@@ -14,8 +14,10 @@ grounding, with no sampling:
   gradient path to the localizer carries no signal. The queries are the
   decode pass's argmax words.
 
-All run under `torch.inference_mode`. The JAX package's `mesh` argument
-waits for multi-GPU support.
+All run under `torch.inference_mode`. With `mesh` (`parallel.mesh.Mesh`)
+they run data-parallel over the data ranks, each on its rows of every
+batch, with the one-process results on every rank; the parameters are the
+whole tree.
 """
 
 from __future__ import annotations
@@ -23,17 +25,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cvc_tpu_torch.data.pipeline import make_batches, to_device
+from cvc_tpu_torch.data.pipeline import make_batches
 from cvc_tpu_torch.models import core
 from cvc_tpu_torch.ops.dispatch import resolve_device
 from cvc_tpu_torch.ops.primitives import masked_xent
 
 
 @torch.inference_mode()
-def recon_loss(params, model_cfg, arrays, uniform: bool) -> torch.Tensor:
+def recon_loss(params, model_cfg, arrays, uniform: bool,
+               mesh=None) -> torch.Tensor:
     """Reconstruction XE of the GT caption with context := v̂: the learned
     β's over the decode pass's argmax words, or (uniform) the mean of the
-    live regions' encodings."""
+    live regions' encodings. With `mesh`, `arrays` are this rank's rows
+    and the result is the whole batch's."""
     tokens, token_mask = arrays["tokens"], arrays["token_mask"]
     targets, mask = tokens[:, 1:], token_mask[:, 1:]
     v_enc, keys, v_global = core.encode_regions(
@@ -56,20 +60,25 @@ def recon_loss(params, model_cfg, arrays, uniform: bool) -> torch.Tensor:
     h_rec, _, _ = core.decode(params, model_cfg, v_enc, keys, v_global,
                               emb_in, arrays["region_mask"],
                               context_override=v_hat)
-    return masked_xent(core.logits(params, h_rec), targets, mask)
+    if mesh is None:
+        return masked_xent(core.logits(params, h_rec), targets, mask)
+    part = masked_xent(core.logits(params, h_rec), targets, mask,
+                       mesh.count(mask))
+    return mesh.reduce_metrics({"xe": part})["xe"]
 
 
 def vhat_dependence(params, model_cfg, ds, batch_size: int,
-                    device="cuda") -> dict:
+                    device="cuda", mesh=None) -> dict:
     """Mean recon XE (learned β vs uniform v̂) over a split. Raises without
     a GPU unless device="cpu"."""
+    from cvc_tpu_torch.evaluation.evaluator import _rank_arrays
     device = resolve_device(device)
     ls, us = [], []
     for b in make_batches(ds, model_cfg, batch_size, shuffle=False,
                           prefetch=0, drop_last=False):
-        arrays = to_device(b.model_inputs(), device)
-        ls.append(float(recon_loss(params, model_cfg, arrays, False)))
-        us.append(float(recon_loss(params, model_cfg, arrays, True)))
+        arrays = _rank_arrays(b, device, mesh)
+        ls.append(float(recon_loss(params, model_cfg, arrays, False, mesh)))
+        us.append(float(recon_loss(params, model_cfg, arrays, True, mesh)))
     learned, uniform = float(np.mean(ls)), float(np.mean(us))
     return {"recon_xe_learned_beta": learned,
             "recon_xe_uniform_beta": uniform,
@@ -77,17 +86,19 @@ def vhat_dependence(params, model_cfg, ds, batch_size: int,
 
 
 def cycle_probe_metrics(params, model_cfg, ds, batch_size: int,
-                        device="cuda") -> dict:
+                        device="cuda", mesh=None) -> dict:
     """The full probe bundle for one checkpoint or epoch (see the module
     doc). Raises without a GPU unless device="cpu"."""
     from cvc_tpu_torch.evaluation.evaluator import gt_sentence_attention_eval
     out = {}
     dec = gt_sentence_attention_eval(params, model_cfg, ds, batch_size,
-                                     source="decoder", device=device)
+                                     source="decoder", device=device,
+                                     mesh=mesh)
     out["tf_attn_acc"] = dec.get("attn_accuracy", 0.0)
     loc = gt_sentence_attention_eval(params, model_cfg, ds, batch_size,
-                                     source="localizer", device=device)
+                                     source="localizer", device=device,
+                                     mesh=mesh)
     out["loc_acc"] = loc.get("attn_accuracy", 0.0)
     out.update(vhat_dependence(params, model_cfg, ds, batch_size,
-                               device=device))
+                               device=device, mesh=mesh))
     return out

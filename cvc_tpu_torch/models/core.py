@@ -31,13 +31,19 @@ from cvc_tpu_torch.models.transformer import (init_transformer_params,
 from cvc_tpu_torch.ops import dispatch
 from cvc_tpu_torch.ops.primitives import (additive_attention_scores,
                                           lstm_cell, masked_softmax,
-                                          sample_categorical)
+                                          sample_categorical, uniform)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def compute_dtype(cfg) -> torch.dtype:
     return DTYPES[cfg.dtype]
+
+
+def decoder_dtype(cfg) -> torch.dtype:
+    """The type of v_enc, the keys and the decoder: the compute type, but
+    float32 with `obj_interact` (`dispatch.decoder_dtype`)."""
+    return DTYPES[dispatch.decoder_dtype(cfg)]
 
 
 # ---------------------------------------------------------------------------
@@ -143,7 +149,8 @@ def param_count(params) -> int:
 def encode_regions(params, cfg, feats, box_geom, region_cls, region_mask,
                    global_feat=None):
     """[B,S,Dfeat] region features -> (v_enc [B,S,H], keys [B,S,A],
-    v_global [B,H]) in the compute type."""
+    v_global [B,H]) in the compute type, or in float32 after the region
+    transformer (`decoder_dtype`)."""
     dtype = compute_dtype(cfg)
     re = params["region_enc"]
     x = feats.to(dtype) @ re["feat_w"].to(dtype)
@@ -163,7 +170,9 @@ def encode_regions(params, cfg, feats, box_geom, region_cls, region_mask,
         v_enc = region_self_attention(params["obj_interact"], v_enc,
                                       region_mask, cfg.obj_interact_heads)
 
-    keys = v_enc @ params["attention"]["wv"].to(dtype)
+    wv = params["attention"]["wv"].to(dtype)
+    t = torch.promote_types(v_enc.dtype, wv.dtype)  # float32 after obj_interact
+    keys = v_enc.to(t) @ wv.to(t)
 
     if not cfg.use_global_feat:
         v_global = torch.zeros((feats.shape[0], cfg.rnn_size), dtype=dtype,
@@ -385,8 +394,7 @@ def decode_scheduled_sampling(params, cfg, v_enc, keys, v_global, tokens_in,
     for t in range(L):
         word = gt_words[t]
         if t > 0:
-            use = torch.rand((B,), generator=generator,
-                             device=keys.device) < ss_prob
+            use = uniform((B,), generator, keys.device) < ss_prob
             word = torch.where(use, sampled, word)
         pre1 = embed_tokens(params, word, dtype) @ w_e + vg_pre
         carry, (h, alpha) = decoder_step(
@@ -463,8 +471,12 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def logits(params, h_seq):
-    """Vocab projection h [..., H] -> [..., V], float32."""
+    """Vocab projection h [..., H] -> [..., V], float32. A head split over
+    ranks (`parallel.mesh.VocabShard`, in the tree the data-parallel
+    losses take) is called instead."""
     lg = params["logit"]
+    if callable(lg):
+        return lg(h_seq)
     return matmul_f32(h_seq, lg["w"].to(h_seq.dtype)) + lg["b"].float()
 
 

@@ -24,16 +24,19 @@ from cvc_tpu_torch.ops import dispatch
 from cvc_tpu_torch.ops.primitives import dropout, masked_xent
 
 
-def _xent(cfg, logits, targets, mask):
-    """Masked token XE; the fused kernel when `use_pallas_train_scan`
-    resolves so for the logits' device."""
+def _xent(cfg, logits, targets, mask, count=None):
+    """Masked token XE over `count` tokens (default sum(mask)); the fused
+    kernel when `use_pallas_train_scan` resolves so for the logits'
+    device."""
     if dispatch.use_pallas_train_scan(cfg, logits.device):
         from cvc_tpu_torch.ops.kernels import fused_masked_xent
         B, L, V = logits.shape
         total = fused_masked_xent(logits.reshape(B * L, V),
                                   targets.reshape(B * L), mask.reshape(B * L))
-        return total / torch.clamp(mask.sum(), min=1.0)
-    return masked_xent(logits, targets, mask)
+        if count is None:
+            count = mask.sum()
+        return total / torch.clamp(count, min=1.0)
+    return masked_xent(logits, targets, mask, count)
 
 
 def _encode(params, cfg, arrays):
@@ -69,13 +72,19 @@ def decode_teacher_forced(params, cfg, arrays, generator=None,
 
 
 def cyclical_loss(params, cfg, arrays, generator=None, train: bool = False,
-                  enable_cycle: bool = True, ss_prob=None):
+                  enable_cycle: bool = True, ss_prob=None, mesh=None):
     """Total loss = XE(decode) + cycle_weight * XE(reconstruct) (+ the
     attention entropy and supervised grounding terms when weighted).
     ss_prob: scheduled sampling in the decode pass (with a generator; the
     reconstruct pass stays teacher-forced). Returns (loss, metrics) with
     metrics {loss, loss_decode, loss_recon, attention_entropy[,
-    loss_attn_sup]}, all 0-d tensors."""
+    loss_attn_sup]}, all 0-d tensors.
+
+    With `mesh` (a data-parallel rank's `parallel.mesh.Mesh`; `arrays`
+    then hold its rows) every masked mean divides by the whole batch's
+    count, so the loss and metrics are this rank's share: summed over the
+    data group they are the one-process values of the whole batch."""
+    count = None if mesh is None else mesh.count
     dtype = core.compute_dtype(cfg)
     tokens, token_mask = arrays["tokens"], arrays["token_mask"]
     targets = tokens[:, 1:]
@@ -87,11 +96,13 @@ def cyclical_loss(params, cfg, arrays, generator=None, train: bool = False,
     # whose decode pass is a scan of its own.
     if (enable_cycle and cfg.cycle_localize_gt and cfg.fuse_cycle_scans
             and ss_prob is None):
-        return _fused_gt_cycle_loss(params, cfg, arrays, generator, train)
+        return _fused_gt_cycle_loss(params, cfg, arrays, generator, train,
+                                    count)
 
     logits_dec, alphas, _, (v_enc, keys, v_global) = decode_teacher_forced(
         params, cfg, arrays, generator, train, ss_prob=ss_prob)
-    loss_dec = _xent(cfg, logits_dec, targets, mask)
+    n_tok = None if count is None else count(mask)
+    loss_dec = _xent(cfg, logits_dec, targets, mask, n_tok)
 
     loss_rec = torch.zeros((), dtype=torch.float32, device=loss_dec.device)
     if enable_cycle:
@@ -113,12 +124,14 @@ def cyclical_loss(params, cfg, arrays, generator=None, train: bool = False,
             h_rec = dropout(h_rec, cfg.drop_prob_lm, generator,
                             deterministic=False)
         logits_rec = core.logits(params, h_rec)
-        loss_rec = _xent(cfg, logits_rec, targets, mask)
+        loss_rec = _xent(cfg, logits_rec, targets, mask, n_tok)
 
-    return _finalize_loss(cfg, arrays, mask, loss_dec, loss_rec, alphas)
+    return _finalize_loss(cfg, arrays, mask, loss_dec, loss_rec, alphas,
+                          n_tok, count)
 
 
-def _fused_gt_cycle_loss(params, cfg, arrays, generator, train: bool):
+def _fused_gt_cycle_loss(params, cfg, arrays, generator, train: bool,
+                         count=None):
     """The GT-query cycle as one merged scan over 2B rows: decode rows
     (mix 0) attend, reconstruct rows (mix 1) take v̂. The same losses as
     the unfused GT-query path; under dropout one [2B] draw replaces the
@@ -146,16 +159,24 @@ def _fused_gt_cycle_loss(params, cfg, arrays, generator, train: bool):
     if train and generator is not None:
         h2 = dropout(h2, cfg.drop_prob_lm, generator, deterministic=False)
     logits2 = core.logits(params, h2)          # one [2B*L, V] product
-    loss_dec = _xent(cfg, logits2[:B], targets, mask)
-    loss_rec = _xent(cfg, logits2[B:], targets, mask)
-    return _finalize_loss(cfg, arrays, mask, loss_dec, loss_rec, a2[:B])
+    n_tok = None if count is None else count(mask)
+    loss_dec = _xent(cfg, logits2[:B], targets, mask, n_tok)
+    loss_rec = _xent(cfg, logits2[B:], targets, mask, n_tok)
+    return _finalize_loss(cfg, arrays, mask, loss_dec, loss_rec, a2[:B],
+                          n_tok, count)
 
 
-def _finalize_loss(cfg, arrays, mask, loss_dec, loss_rec, alphas):
+def _finalize_loss(cfg, arrays, mask, loss_dec, loss_rec, alphas,
+                   n_tok=None, count=None):
     """Shared tail: total loss, entropy penalty, optional supervised
-    grounding, metrics dict."""
+    grounding, metrics dict. `count(x)`: the whole batch's sum of a mask
+    (None: this batch's); `n_tok`: count(mask) when the caller has it."""
+    if count is None:
+        count = torch.sum
+    if n_tok is None:
+        n_tok = count(mask)
     loss = loss_dec + cfg.cycle_weight * loss_rec
-    attn_ent = _mean_attention_entropy(alphas, mask)
+    attn_ent = _mean_attention_entropy(alphas, mask, n_tok)
     if cfg.attention_entropy_weight > 0:
         loss = loss + cfg.attention_entropy_weight * attn_ent
     metrics = {"loss": loss, "loss_decode": loss_dec, "loss_recon": loss_rec,
@@ -169,16 +190,16 @@ def _finalize_loss(cfg, arrays, mask, loss_dec, loss_rec, alphas):
         has = (gt >= 0).float() * mask
         p = torch.gather(alphas, -1, gt.clamp(min=0)[..., None])[..., 0]
         nll = -torch.log(torch.clamp(p, 1e-9, 1.0)) * has
-        loss_sup = nll.sum() / torch.clamp(has.sum(), min=1.0)
+        loss_sup = nll.sum() / torch.clamp(count(has), min=1.0)
         loss = loss + w_sup * loss_sup
         metrics["loss"] = loss
         metrics["loss_attn_sup"] = loss_sup
     return loss, metrics
 
 
-def _mean_attention_entropy(alphas, token_mask):
-    """Mean entropy of the decoder's region attention over supervised
-    steps (grounding sharpens as it falls)."""
+def _mean_attention_entropy(alphas, token_mask, n_tok):
+    """Mean entropy of the decoder's region attention over the `n_tok`
+    supervised steps (grounding sharpens as it falls)."""
     p = torch.clamp(alphas, 1e-9, 1.0)
     ent = -(p * torch.log(p)).sum(-1)                   # [B, L]
-    return (ent * token_mask).sum() / torch.clamp(token_mask.sum(), min=1.0)
+    return (ent * token_mask).sum() / torch.clamp(n_tok, min=1.0)

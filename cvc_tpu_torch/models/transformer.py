@@ -55,26 +55,36 @@ def _ln(x, scale, bias, eps=1e-6):
     return y.to(x.dtype)
 
 
+def _affine(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+    """x @ w + b in the promoted type of the activation and the weights, as
+    jnp computes it: a bfloat16 activation against float32 weights gives
+    float32."""
+    t = torch.promote_types(x.dtype, w.dtype)
+    return x.to(t) @ w.to(t) + b
+
+
 def region_self_attention(params, x: torch.Tensor, mask: torch.Tensor,
                           num_heads: int = 4) -> torch.Tensor:
     """x [B, S, H], mask [B, S] -> [B, S, H]. Padded slots neither attend
-    nor are attended to, and come out zero. The weights are cast to x's
-    type; the attention scores and softmax are float32."""
+    nor are attended to, and come out zero. Each product and bias add runs
+    in the promoted type of its operands, as in the JAX package, whose
+    float32 weights turn bfloat16 activations float32 (so does the final
+    product with the float32 mask); the attention scores and softmax are
+    float32."""
     nh = num_heads
     B, S, H = x.shape
     hd = H // nh
-    dtype = x.dtype
     for lp in params["layers"]:
         y = _ln(x, lp["ln1_scale"], lp["ln1_bias"])
-        qkv = y @ lp["qkv_w"].to(dtype) + lp["qkv_b"].to(dtype)
+        qkv = _affine(y, lp["qkv_w"], lp["qkv_b"])
         q, k, v = (t.reshape(B, S, nh, hd).transpose(1, 2)
                    for t in qkv.split(H, dim=-1))
         scores = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float())
         attn = masked_softmax(scores / math.sqrt(hd), mask[:, None, None, :])
-        ctx = torch.einsum("bhst,bhtd->bhsd", attn.to(dtype), v)
+        ctx = torch.einsum("bhst,bhtd->bhsd", attn.to(v.dtype), v)
         ctx = ctx.transpose(1, 2).reshape(B, S, H)
-        x = x + (ctx @ lp["out_w"].to(dtype) + lp["out_b"].to(dtype))
+        x = x + _affine(ctx, lp["out_w"], lp["out_b"])
         y = _ln(x, lp["ln2_scale"], lp["ln2_bias"])
-        x = x + (torch.relu(y @ lp["ffn1_w"].to(dtype) + lp["ffn1_b"].to(dtype))
-                 @ lp["ffn2_w"].to(dtype) + lp["ffn2_b"].to(dtype))
-    return x * mask[..., None].to(dtype)
+        x = x + _affine(torch.relu(_affine(y, lp["ffn1_w"], lp["ffn1_b"])),
+                        lp["ffn2_w"], lp["ffn2_b"])
+    return x * mask[..., None]

@@ -43,6 +43,15 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def decoder_dtype(cfg) -> str:
+    """The type of the decoder's activations, which the kernels take: the
+    compute type, but float32 with `obj_interact`. The JAX package's
+    region transformer adds its float32 weights to bfloat16 activations,
+    and jnp promotes, so v_enc, the keys and the decoder after them are
+    float32 there; the port follows (`models/transformer.py`)."""
+    return "float32" if cfg.obj_interact else cfg.dtype
+
+
 def _resolve(flag, device) -> bool:
     if flag is None:
         return torch.device(device).type == "cuda"
@@ -98,10 +107,11 @@ def require_fit(cfg, device, path: str, beam_size: int = 1) -> None:
     es = _ELEM_SIZE.get(cfg.dtype)
     if es is None:
         raise ValueError(f"dtype {cfg.dtype} is not float32 or bfloat16")
+    es = _ELEM_SIZE[decoder_dtype(cfg)]
     kernels, select = [], []
     if path == "beam":
         kernels.append(decoder_step.fit_error(A, H, es))
-        bf16 = cfg.beam_select_bf16 and cfg.dtype == "bfloat16"
+        bf16 = cfg.beam_select_bf16 and decoder_dtype(cfg) == "bfloat16"
         select.append(topk_select.fit_error(beam_size, V, 2 if bf16 else 4))
     else:
         kernels += [lstm.fit_error(H, es), attention.forward_fit_error(A, H, es)]

@@ -53,38 +53,85 @@ def masked_softmax(logits: torch.Tensor, mask: torch.Tensor,
 
 
 def masked_xent(logits: torch.Tensor, targets: torch.Tensor,
-                mask: torch.Tensor) -> torch.Tensor:
+                mask: torch.Tensor, count=None) -> torch.Tensor:
     """Masked token cross entropy averaged over supervised tokens (the
     reference's LanguageModelCriterion): logits [B, L, V], targets [B, L]
-    ids, mask [B, L] float -> sum of masked NLL / max(sum(mask), 1), in
-    float32."""
+    ids, mask [B, L] float -> sum of masked NLL / max(count, 1), in
+    float32, `count` being sum(mask) unless given (a data-parallel rank
+    passes the whole batch's)."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     tgt = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
     nll = (logz - tgt) * mask
-    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    if count is None:
+        count = mask.sum()
+    return nll.sum() / torch.clamp(count, min=1.0)
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
+class RowShard:
+    """A generator for a batch split over data-parallel ranks: every draw is
+    made for the whole batch from `generator`, the draws one process would
+    make, and this rank keeps its rows. A draw's leading dim is m·rows
+    (m = 1, or 2 for the merged decode + reconstruct batch, whose halves
+    are each a copy of the batch), the whole draw's m·total, and this
+    rank's row i of block j is row j·total + offset + i of it."""
+
+    def __init__(self, generator: torch.Generator, offset: int, rows: int,
+                 total: int):
+        self.generator, self.offset = generator, offset
+        self.rows, self.total = rows, total
+
+    def draw(self, fill, shape, device) -> torch.Tensor:
+        m, rest = divmod(shape[0], self.rows)
+        if rest:
+            raise ValueError(f"a draw of {shape[0]} rows on a rank of "
+                             f"{self.rows}")
+        whole = fill((m * self.total, *shape[1:]), self.generator, device)
+        idx = (torch.arange(m, device=device)[:, None] * self.total
+               + self.offset
+               + torch.arange(self.rows, device=device)[None, :])
+        return whole.index_select(0, idx.reshape(-1))
+
+
+def _draw(fill, shape, generator, device) -> torch.Tensor:
+    if isinstance(generator, RowShard):
+        return generator.draw(fill, tuple(shape), device)
+    return fill(tuple(shape), generator, device)
+
+
+def _uniform(shape, generator, device):
+    return torch.rand(shape, generator=generator, device=device)
+
+
+def _exponential(shape, generator, device):
+    e = torch.empty(shape, dtype=torch.float32, device=device)
+    return e.exponential_(generator=generator)
+
+
+def uniform(shape, generator, device) -> torch.Tensor:
+    """U[0, 1) float32 of `shape` from `generator` (a torch.Generator, or
+    a RowShard of one)."""
+    return _draw(_uniform, shape, generator, device)
+
+
+def dropout(x: torch.Tensor, rate: float, generator,
             deterministic: bool) -> torch.Tensor:
     """Inverted dropout (reference: --drop_prob_lm on the LSTM outputs):
     each element is kept with probability 1 - rate and scaled by
-    1 / (1 - rate). The draws come from `generator`, which lies on x's
-    device; they cannot match jax.random's."""
+    1 / (1 - rate). The draws come from `generator` (a torch.Generator on
+    x's device, or a RowShard of one); they cannot match jax.random's."""
     if deterministic or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    kept = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    kept = uniform(x.shape, generator, x.device) < keep
     return torch.where(kept, x / keep, torch.zeros_like(x)).to(x.dtype)
 
 
-def sample_categorical(logits: torch.Tensor,
-                       generator: torch.Generator) -> torch.Tensor:
+def sample_categorical(logits: torch.Tensor, generator) -> torch.Tensor:
     """One draw a row from softmax(logits) over the last axis, by
     Gumbel-max: argmax(logits - log E) with E ~ Exp(1) drawn from
-    `generator` (on the logits' device), the one-sample method of
-    `torch.multinomial`. Exact in distribution; the draws cannot match
-    jax.random's. Returns int64 indices [...]."""
-    e = torch.empty(logits.shape, dtype=torch.float32, device=logits.device)
-    e.exponential_(generator=generator)
+    `generator` (on the logits' device; or a RowShard of one), the
+    one-sample method of `torch.multinomial`. Exact in distribution; the
+    draws cannot match jax.random's. Returns int64 indices [...]."""
+    e = _draw(_exponential, logits.shape, generator, logits.device)
     return torch.argmax(logits.float() - torch.log(e), dim=-1)

@@ -2,7 +2,7 @@
 `cvc_tpu/serving.py`).
 
     cap = Captioner.from_checkpoint("save/exp1", beam_size=5)
-    cap = Captioner.from_torch("params.npz", "config.json", "vocab.json")
+    cap = Captioner.from_torch("model-best.pth", "config.json", "vocab.json")
     out = cap.caption([{"features": f, "boxes": b, "classes": c}, ...])
     # -> [{"caption": str, "score": float,
     #      "grounding": [{"word", "box", "weight"}, ...]}, ...]
@@ -25,7 +25,7 @@ from cvc_tpu_torch.data.pipeline import pad_regions_into
 from cvc_tpu_torch.data.vocab import Vocabulary
 from cvc_tpu_torch.models import core
 from cvc_tpu_torch.models.decoding import make_decoder
-from cvc_tpu_torch.models.weights import load_params_npz, params_from_numpy
+from cvc_tpu_torch.models.weights import params_from_numpy
 from cvc_tpu_torch.ops.dispatch import resolve_device
 
 
@@ -82,19 +82,17 @@ class Captioner:
                    beam_size: int = 5, batch_size: int = 64,
                    length_penalty: float = 0.0,
                    device="cuda") -> "Captioner":
-        """Serve an .npz parameter file (the flat `a/b/c` layout that
-        `save_params_npz` writes, from either package) with a `config.json`
-        that `cvc_tpu` wrote and a vocabulary file."""
-        if not ckpt_path.endswith(".npz"):
-            raise NotImplementedError(
-                f"{ckpt_path}: only .npz parameter files are served so far; "
-                f"the .pth importer waits for ROADMAP queue 1 item 7")
+        """Serve a reference-lineage torch checkpoint (.pth/.pt, mapped by
+        `models/torch_import.py`) or an .npz parameter file (the flat
+        `a/b/c` layout that `save_params_npz` writes, from either package)
+        with a `config.json` of either package and a vocabulary file."""
+        from cvc_tpu_torch.models.torch_import import import_params
         device = resolve_device(device)
         with open(config_json) as f:
             cfg = Config.from_json(f.read())
         vocab = Vocabulary.load(vocab_file)
         cfg.model.vocab_size = vocab.padded_size(128)
-        params = load_params_npz(ckpt_path, device)
+        params, _ = import_params(ckpt_path, cfg.model, device=device)
         return Captioner.build(params, cfg.model, vocab, beam_size,
                                batch_size, length_penalty, device)
 
@@ -103,8 +101,8 @@ class Captioner:
               batch_size: int = 64, length_penalty: float = 0.0,
               device="cuda") -> "Captioner":
         """params: a nested dict of tensors or numpy arrays in the JAX
-        package's layout. The weights are moved to `device` and cast to
-        the compute type once."""
+        package's layout. The weights are moved to `device` and cast once
+        to the type the decoder runs in (`core.decoder_dtype`)."""
         device = resolve_device(device)
         e_cfg = EvalConfig(beam_size=beam_size,
                            sample_method="beam" if beam_size > 1 else "greedy",
@@ -112,7 +110,7 @@ class Captioner:
                            length_penalty=length_penalty)
         decoder = make_decoder(model_cfg, e_cfg, device)
         params = core.cast_params(params_from_numpy(params, device),
-                                  core.compute_dtype(model_cfg))
+                                  core.decoder_dtype(model_cfg))
         return Captioner(params=params, model_cfg=model_cfg, vocab=vocab,
                          decoder=decoder, batch_size=batch_size,
                          device=device)

@@ -15,10 +15,13 @@ on the device seeded from `(train.seed + 1, step)`, the batches from
 `data.seed + epoch`, and the learning rate from the step, so 2 epochs plus
 1 resumed give the parameters of 3 straight epochs.
 
-Multi-GPU training (`num_devices > 1`, `model_axis > 1`, or
-`num_devices == 0` with more than one visible card) waits for ROADMAP
-queue 1 item 8 and is refused; so is a `.pth` for `import_torch`
-(item 7: only an `.npz` is taken).
+Several ranks (`num_devices > 1`, or 0 with several visible cards;
+`model_axis > 1` splits the vocabulary head) train one process a rank
+(started by the CLI, or by `torchrun`): every rank runs this loop over
+its rows of each batch (`parallel.mesh`), and rank 0 alone logs, saves
+the config and writes checkpoints, which hold the same whole tree as a
+one-process run's, so a run resumes at any world size. `import_torch`
+takes a reference `.pth` or an `.npz`.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from cvc_tpu_torch.data.pipeline import make_batches, num_batches, to_device
 from cvc_tpu_torch.evaluation.evaluator import evaluate_split
 from cvc_tpu_torch.models import core
 from cvc_tpu_torch.ops.dispatch import resolve_device
+from cvc_tpu_torch.parallel.mesh import make_mesh
 from cvc_tpu_torch.training.checkpoint import CheckpointManager, save_config
 from cvc_tpu_torch.training.optimizer import make_optimizer
 from cvc_tpu_torch.training.step import (make_resident_train_step,
@@ -82,29 +86,54 @@ def _finalize_model_config(cfg: Config, ds) -> None:
                                     len(ds.class_names))
 
 
-def refuse_multi_device(t_cfg, device: torch.device) -> None:
-    """Raise NotImplementedError for a configuration that needs more than
-    one card (ROADMAP queue 1 item 8)."""
-    visible = torch.cuda.device_count() if device.type == "cuda" else 1
-    if (t_cfg.num_devices > 1 or t_cfg.model_axis > 1
-            or (t_cfg.num_devices == 0 and visible > 1)):
-        raise NotImplementedError(
-            f"num_devices={t_cfg.num_devices}, model_axis="
-            f"{t_cfg.model_axis} with {visible} visible card(s): multi-GPU "
-            f"training waits for ROADMAP queue 1 item 8; set "
-            f"--num_devices 1")
+def world_size(t_cfg, device: torch.device) -> int:
+    """The ranks a run asks for: `num_devices`, or with 0 every visible
+    card (one process on the CPU)."""
+    if t_cfg.num_devices and t_cfg.num_devices > 0:
+        return t_cfg.num_devices
+    return torch.cuda.device_count() if device.type == "cuda" else 1
 
 
-def import_params(path: str, device) -> dict:
-    """Warm-start weights for `TrainConfig.import_torch`: an `.npz` in the
-    flat `a/b/c` layout. A `.pth` waits for the importer (ROADMAP queue 1
-    item 7)."""
-    from cvc_tpu_torch.models.weights import load_params_npz
-    if not path.endswith(".npz"):
-        raise NotImplementedError(
-            f"{path}: only .npz parameter files are taken so far; the .pth "
-            f"importer waits for ROADMAP queue 1 item 7")
-    return load_params_npz(path, device)
+def run_mesh(t_cfg, device: torch.device):
+    """This rank's Mesh, or None for a run of one process without a
+    process group. Raises ValueError where the run asks for more ranks
+    than this process's group has (start them with the CLI or torchrun),
+    or for a model axis that does not divide them."""
+    import torch.distributed as dist
+    n = world_size(t_cfg, device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if n == 1 and t_cfg.model_axis == 1 and not dist.is_initialized():
+        return None
+    if n != world:
+        raise ValueError(
+            f"num_devices={t_cfg.num_devices} asks for {n} ranks but this "
+            f"process runs in a group of {world}: start one process a rank "
+            f"with `python -m cvc_tpu_torch.train --num_devices {n}` or "
+            f"torchrun")
+    return make_mesh(n, t_cfg.model_axis, device)
+
+
+class _Silent:
+    """The logger of a rank other than 0: logs nothing."""
+
+    def log(self, *args, **kwargs) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def import_params(path: str, model_cfg, device, verbose: bool = True) -> dict:
+    """Warm-start weights for `TrainConfig.import_torch`: a reference
+    `.pth`/`.pt` (mapped by `models/torch_import.py`) or an `.npz` in the
+    flat `a/b/c` layout, on `device`. Prints how many checkpoint keys were
+    mapped, as the JAX loop does (`verbose`)."""
+    from cvc_tpu_torch.models.torch_import import import_params as load
+    params, report = load(path, model_cfg, device=device)
+    if verbose:
+        print(f"imported params from {path} "
+              f"({len(report.get('mapped', []))} keys)", flush=True)
+    return params
 
 
 def step_generator(device, seed: int, step: int,
@@ -119,11 +148,13 @@ def train(cfg: Config, max_epochs: int | None = None,
           log_dir: str | None = None, device="cuda") -> dict:
     """Run training per Config; returns the summary infos (epoch,
     best_cider, best_step, final_step). `TrainConfig.donate_state` has no
-    effect: the step already updates the state in place. Raises without a
-    GPU unless device="cpu"."""
+    effect: the step already updates the state in place. In a process
+    group (see `run_mesh`) this is one rank's loop and `device` its card.
+    Raises without a GPU unless device="cpu"."""
     device = resolve_device(device)
     t_cfg, m_cfg = cfg.train, cfg.model
-    refuse_multi_device(t_cfg, device)
+    mesh = run_mesh(t_cfg, device)
+    lead = mesh is None or mesh.rank == 0
     train_ds = load_dataset(cfg.data, m_cfg, "train")
     val_ds = load_dataset(cfg.data, m_cfg, "val")
     _finalize_model_config(cfg, train_ds)
@@ -131,12 +162,12 @@ def train(cfg: Config, max_epochs: int | None = None,
     steps_per_epoch = max(num_batches(train_ds, cfg.data.batch_size), 1)
     if t_cfg.import_torch:
         # warm start from converted weights; fresh optimizer state
-        params = import_params(t_cfg.import_torch, device)
-        print(f"imported params from {t_cfg.import_torch}", flush=True)
+        params = import_params(t_cfg.import_torch, m_cfg, device, lead)
     else:
         params = core.init_params(torch.Generator().manual_seed(t_cfg.seed),
                                   m_cfg, device)
-    state = TrainState.create(params, make_optimizer(t_cfg, steps_per_epoch))
+    optimizer = make_optimizer(t_cfg, steps_per_epoch)
+    state = TrainState.create(params, optimizer)
 
     ckpt = CheckpointManager(t_cfg.checkpoint_path)
     infos = {"epoch": 0, "best_cider": -1.0, "best_step": -1}
@@ -148,15 +179,23 @@ def train(cfg: Config, max_epochs: int | None = None,
         resume = (ckpt if resume_dir == t_cfg.checkpoint_path
                   else CheckpointManager(resume_dir))
         state, infos = resume.restore(state)
-        print(f"resumed from {resume_dir} @ step {state.step} "
-              f"(epoch {infos.get('epoch', '?')})", flush=True)
-    save_config(t_cfg.checkpoint_path, cfg)
+        if lead:
+            print(f"resumed from {resume_dir} @ step {state.step} "
+                  f"(epoch {infos.get('epoch', '?')})", flush=True)
+    if mesh is not None:     # the whole tree -> this rank's view
+        state = mesh.split_state(state, optimizer)
+    if lead:
+        save_config(t_cfg.checkpoint_path, cfg)
 
     step_fns: dict = {}
     resident = cfg.data.device_resident
     with_gt = m_cfg.attn_supervision_weight > 0
     dd = None
-    if resident:
+    if resident and mesh is not None:
+        from cvc_tpu_torch.data.device_data import ShardedDeviceDataset
+        dd = ShardedDeviceDataset(train_ds, m_cfg, mesh,
+                                  with_gt_region=with_gt, device=device)
+    elif resident:
         from cvc_tpu_torch.data.device_data import DeviceDataset
         dd = DeviceDataset(train_ds, m_cfg, with_gt_region=with_gt,
                            device=device)
@@ -168,10 +207,11 @@ def train(cfg: Config, max_epochs: int | None = None,
             tc = replace(t_cfg, enable_cycle=cycle_on)
             mc = replace(m_cfg, cycle_localize_gt=gt_q, cycle_weight=cw)
             make = make_resident_train_step if resident else make_train_step
-            step_fns[stage] = make(mc, tc, steps_per_epoch, device)
+            step_fns[stage] = make(mc, tc, steps_per_epoch, device, mesh)
         return step_fns[stage]
 
-    logger = MetricLogger(log_dir or f"{t_cfg.checkpoint_path}/logs")
+    logger = (MetricLogger(log_dir or f"{t_cfg.checkpoint_path}/logs")
+              if lead else _Silent())
     seed = t_cfg.seed + 1
     epochs = max_epochs if max_epochs is not None else t_cfg.max_epochs
     start_epoch = int(infos.get("epoch", 0))
@@ -201,11 +241,12 @@ def train(cfg: Config, max_epochs: int | None = None,
                             else scst_lib.make_scst_sampler)
             scst = {
                 "sampler": make_sampler(m_cfg, m_cfg.seq_length,
-                                        device=device),
+                                        device=device, mesh=mesh),
                 "step": scst_lib.make_scst_step(
                     replace(m_cfg, cycle_weight=stage[2]), t_cfg,
                     steps_per_epoch, xe_weight=t_cfg.scst_xe_weight,
-                    enable_cycle=cycle_on, device=device, resident=resident),
+                    enable_cycle=cycle_on, device=device, resident=resident,
+                    mesh=mesh),
                 "rewarder": rewarder,
                 "run": (scst_lib.scst_train_batch_resident if resident
                         else scst_lib.scst_train_batch),
@@ -231,7 +272,10 @@ def train(cfg: Config, max_epochs: int | None = None,
                 idx = dd.upload_index(batch)
                 n_batch_tokens = dd.batch_tokens(batch)
             else:
-                inputs = to_device(batch.model_inputs(), device)
+                inputs = batch.model_inputs()
+                if mesh is not None:
+                    inputs = mesh.shard_batch(inputs)
+                inputs = to_device(inputs, device)
                 n_batch_tokens = float(batch.token_mask.sum())
             wait_s += time.perf_counter() - tw
             gen = step_generator(device, seed, state.step)
@@ -242,7 +286,8 @@ def train(cfg: Config, max_epochs: int | None = None,
                                       batch, train_ds, scst["sampler"],
                                       scst["step"], scst["rewarder"],
                                       step_generator(device, seed,
-                                                     state.step, 1), gen)
+                                                     state.step, 1), gen,
+                                      mesh=mesh)
             elif resident:
                 metrics = step_fn(state, inputs, idx, gen, ss_prob)
             else:
@@ -274,15 +319,17 @@ def train(cfg: Config, max_epochs: int | None = None,
                                        language_eval=t_cfg.language_eval,
                                        grounding_eval=t_cfg.grounding_eval)
                 tv = time.perf_counter()
+                eval_params = (state.params if mesh is None
+                               else mesh.join_params(state.params))
                 val_metrics = evaluate_split(
-                    state.params, m_cfg, val_eval_cfg, val_ds,
-                    cfg.data.batch_size, device=device)
+                    eval_params, m_cfg, val_eval_cfg, val_ds,
+                    cfg.data.batch_size, device=device, mesh=mesh)
                 if t_cfg.cycle_probes:
                     from cvc_tpu_torch.evaluation.probes import \
                         cycle_probe_metrics
                     val_metrics.update(cycle_probe_metrics(
-                        state.params, m_cfg, val_ds, cfg.data.batch_size,
-                        device=device))
+                        eval_params, m_cfg, val_ds, cfg.data.batch_size,
+                        device=device, mesh=mesh))
                 logger.log(state.step, val_metrics, prefix="val")
                 logger.log(state.step, {"val_sec": time.perf_counter() - tv},
                            prefix="speed", to_console=False)
@@ -293,7 +340,9 @@ def train(cfg: Config, max_epochs: int | None = None,
 
         infos["epoch"] = epoch + 1
         if (epoch + 1) % t_cfg.save_checkpoint_every == 0:
-            ckpt.save(state.step, state, infos, metrics=val_metrics)
+            whole = state if mesh is None else mesh.join_state(state, optimizer)
+            if lead:
+                ckpt.save(state.step, whole, infos, metrics=val_metrics)
     ckpt.wait()
     logger.close()
     infos["final_step"] = state.step

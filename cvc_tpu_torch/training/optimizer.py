@@ -42,7 +42,8 @@ class Optimizer:
     makes the torch optimizer for a list of parameter tensors;
     `update(opt, leaves, step)` clips their gradients in place, sets the
     learning rate for `step` and takes one optimizer step. Returns the
-    gradients' global norm before clipping (a device tensor)."""
+    gradients' global norm before clipping (a device tensor), computed by
+    `norm_fn(grads)` (a data-parallel step passes the whole tree's)."""
 
     def __init__(self, train_cfg, steps_per_epoch: int):
         self.cfg = train_cfg
@@ -57,14 +58,15 @@ class Optimizer:
                                      **kw)
         return torch.optim.Adam(leaves, **kw)
 
-    def update(self, opt: torch.optim.Optimizer, leaves, step: int):
+    def update(self, opt: torch.optim.Optimizer, leaves, step: int,
+               norm_fn=global_norm):
         # a parameter outside this loss has gradient zero, as in JAX, and
         # Adam still moves it by its momentum
         for p in leaves:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in leaves]
-        norm = global_norm(grads)
+        norm = norm_fn(grads)
         clip = self.cfg.grad_clip
         if clip and clip > 0:
             scale = torch.where(norm < clip, torch.ones_like(norm),

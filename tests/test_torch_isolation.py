@@ -23,6 +23,12 @@ bad = sorted(m for m in sys.modules
              or m == "cvc_tpu" or m.startswith("cvc_tpu."))
 print(len(names), bad)
 assert not bad, bad
+for new in ("cvc_tpu_torch.models.torch_import", "cvc_tpu_torch.native",
+            "cvc_tpu_torch.parallel.mesh", "cvc_tpu_torch.parallel.launch",
+            "cvc_tpu_torch.tools.import_torch_checkpoint",
+            "cvc_tpu_torch.utils.debug", "cvc_tpu_torch.utils.profiling",
+            "cvc_tpu_torch.utils.visualize"):
+    assert new in names, new
 """
 
 
@@ -118,3 +124,37 @@ def test_loop_evaluation_and_cli_entry_points_default_to_cuda(
         with pytest.raises(RuntimeError, match="cuda"):
             call()
     assert not (tmp_path / "ckpt").exists()
+
+
+def test_importer_parallel_and_tool_entry_points_default_to_cuda(
+        monkeypatch, tmp_path):
+    from cvc_tpu_torch.config import Config, ModelConfig
+    from cvc_tpu_torch.data.device_data import ShardedDeviceDataset
+    from cvc_tpu_torch.data.synthetic import make_synthetic_dataset
+    from cvc_tpu_torch.models.torch_import import (convert_state_dict,
+                                                   import_params)
+    from cvc_tpu_torch.models.weights import save_params_npz
+    from cvc_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from cvc_tpu_torch.tools import import_torch_checkpoint as tool
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    npz = str(tmp_path / "p.npz")
+    save_params_npz({"a": torch.zeros(2)}, npz)
+    cfg_json = tmp_path / "config.json"
+    cfg_json.write_text(Config().to_json())
+    ds = make_synthetic_dataset(num_images=2, num_regions=4, feat_dim=8,
+                                seq_length=6)
+    calls = [
+        lambda: convert_state_dict({}, ModelConfig()),
+        lambda: import_params(npz, ModelConfig()),
+        lambda: ShardedDeviceDataset(
+            ds, ModelConfig(num_regions=4, feat_dim=8, seq_length=6),
+            Mesh(1, 1, 0, torch.device("cpu"))),
+        lambda: make_mesh(),
+        lambda: tool.main(["--ckpt", str(tmp_path / "x.pth"),
+                           "--config_json", str(cfg_json),
+                           "--out", str(tmp_path / "o.npz")]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()

@@ -371,32 +371,70 @@ def test_loop_stages_run(tmp_path, name):
 
 @pytest.mark.parametrize("flags", [dict(num_devices=2), dict(model_axis=2)])
 def test_multi_device_is_refused_naming_item_8(tmp_path, flags):
+    """Several ranks are trained one process a rank (tests/
+    test_torch_parallel.py); `train` called in one process without a
+    process group refuses a run that asks for more ranks, naming how to
+    start them, and a model axis that does not divide the world (the JAX
+    package's make_mesh rule)."""
     cfg = _config(tmp_path)
     cfg.train = dataclasses.replace(cfg.train, **flags)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    match = ("start one process a rank" if "num_devices" in flags
+             else "not divisible by model_axis=2")
+    with pytest.raises(ValueError, match=match):
         loop.train(cfg, device="cpu")
+    assert not (tmp_path / "ckpt").exists()
 
 
 def test_all_visible_cards_is_refused_on_two(monkeypatch):
+    """num_devices 0 takes every visible card: two ranks with two cards,
+    one on the CPU; an explicit count wins."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        loop.refuse_multi_device(TrainConfig(num_devices=0),
-                                 torch.device("cuda"))
-    loop.refuse_multi_device(TrainConfig(num_devices=1),
-                             torch.device("cuda"))
-    loop.refuse_multi_device(TrainConfig(num_devices=0),
-                             torch.device("cpu"))
+    assert loop.world_size(TrainConfig(num_devices=0),
+                           torch.device("cuda")) == 2
+    assert loop.world_size(TrainConfig(num_devices=1),
+                           torch.device("cuda")) == 1
+    assert loop.world_size(TrainConfig(num_devices=0),
+                           torch.device("cpu")) == 1
+    assert loop.world_size(TrainConfig(num_devices=3),
+                           torch.device("cpu")) == 3
+    assert loop.run_mesh(TrainConfig(num_devices=1),
+                         torch.device("cpu")) is None
 
 
-def test_a_pth_is_refused_naming_item_7(tmp_path):
+def test_a_pth_is_refused_naming_item_7(tmp_path, capsys):
+    """A reference `.pth` is taken by `--import_torch`: the loop warm-starts
+    from it and the eval CLI scores it, both printing the mapping report's
+    key count, and both give the weights the importer gives."""
     from cvc_tpu_torch import eval as cli_eval
+    from cvc_tpu_torch.models.torch_import import import_params as imp
+    from tests.test_torch_import import RefTorchModel
     cfg = _config(tmp_path)
-    cfg.train.import_torch = str(tmp_path / "model-best.pth")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        loop.train(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        cli_eval.main(["--dataset", "synthetic", "--import_torch",
-                       str(tmp_path / "model-best.pth")], device="cpu")
+    ds = make_synthetic_dataset(num_images=24, num_regions=12, feat_dim=32,
+                                seq_length=10, split="train")
+    m = cfg.model
+    torch.manual_seed(0)
+    ref = RefTorchModel(len(ds.vocab), m.input_encoding_size, m.rnn_size,
+                        m.att_hid_size, m.feat_dim)
+    pth = str(tmp_path / "model-best.pth")
+    torch.save({"state_dict": {f"module.{k}": v
+                               for k, v in ref.state_dict().items()}}, pth)
+    cfg.train.import_torch = pth
+    cfg.train.max_epochs = 1
+    loop.train(cfg, device="cpu")
+    assert "imported params from" in capsys.readouterr().out
+    res = cli_eval.main(["--dataset", "synthetic", "--import_torch", pth,
+                         "--synthetic_num_images", "24", "--batch_size", "8",
+                         "--rnn_size", str(m.rnn_size),
+                         "--input_encoding_size", str(m.input_encoding_size),
+                         "--att_hid_size", str(m.att_hid_size),
+                         "--feat_dim", str(m.feat_dim), "--num_props", "12",
+                         "--seq_length", "10", "--beam_size", "1",
+                         "--out_dir", str(tmp_path / "eval")], device="cpu")
+    out = capsys.readouterr().out
+    assert "keys)" in out and res["n_images"] > 0
+    cfg.model.vocab_size = ds.vocab.padded_size(128)
+    params, report = imp(pth, cfg.model, device="cpu")
+    assert report["ckpt_vocab"] == len(ds.vocab)
 
 
 def test_clis_and_from_checkpoint(tmp_path, capsys):

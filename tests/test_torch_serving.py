@@ -80,6 +80,7 @@ def test_captioner_from_torch_npz(tmp_path):
     cap = Captioner.from_torch(npz, cfg_json, vocab_file, beam_size=2,
                                batch_size=4, device="cpu")
     _same(cap.caption(reqs), want)
-    with pytest.raises(NotImplementedError):
+    # a .pth goes to the importer (tests/test_torch_pth_import.py)
+    with pytest.raises(FileNotFoundError):
         Captioner.from_torch(str(tmp_path / "model.pth"), cfg_json,
                              vocab_file, device="cpu")

@@ -148,6 +148,40 @@ def test_encode_regions_matches_jax():
 
 
 @pytest.mark.parametrize("kernels", [True, False])
+def test_bf16_encoder_types_and_beam_tokens_follow_jax(kernels):
+    """Under bfloat16 the JAX package's region transformer adds float32
+    weights to bfloat16 activations and jnp promotes: v_enc, the keys and
+    the pooled feature come out float32, and the decoder runs in float32.
+    The port's dtypes must equal the reference's, the values agree at rtol
+    1e-5 (atol 1e-6 where float32 sums in another order cancel to near
+    zero), and the beam-5 tokens of the whole decode be equal."""
+    jcfg, jparams, arrays = _setup(seed=5, dtype="bfloat16")
+    ja = {k: jnp.asarray(v) for k, v in arrays.items()}
+    want = jcore.encode_regions(jparams, jcfg, ja["feats"], ja["box_geom"],
+                                ja["region_cls"], ja["region_mask"])
+    cfg = _port_cfg(jcfg, use_pallas=kernels, pallas_select=kernels)
+    ta = to_device(arrays, "cpu")
+    tp = _port_params(jparams, False)
+    got = tcore.encode_regions(tp, cfg, ta["feats"], ta["box_geom"],
+                               ta["region_cls"], ta["region_mask"])
+    assert [str(np.asarray(w).dtype) for w in want] == ["float32"] * 3
+    assert [g.dtype for g in got] == [torch.float32] * 3
+    assert tcore.decoder_dtype(cfg) == torch.float32
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-6)
+    want = jdec.beam_search(jparams, jcfg, ja, beam_size=5,
+                            max_len=jcfg.seq_length)
+    got = tdec.beam_search(tp, cfg, ta, beam_size=5, max_len=jcfg.seq_length)
+    np.testing.assert_array_equal(got["tokens"].numpy(),
+                                  np.asarray(want["tokens"]))
+    # the Captioner casts its weights once to the decoder's type
+    served = Captioner.build(_np(jparams), cfg, None, beam_size=5,
+                             batch_size=4, device="cpu")
+    assert served.params["att_lstm"]["wx"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("kernels", [True, False])
 @pytest.mark.parametrize("gt", [False, True])
 def test_cyclical_loss_and_grads_match_jax(gt, kernels):
     jcfg, jparams, arrays = _setup(seed=2, cycle_localize_gt=gt)
