@@ -133,7 +133,18 @@
    over a ShardedDeviceDataset, an SCST iteration and a beam-5 validation
    pass; then a world of one over NCCL through `train`; launches a step
    on each rank.
-13. Prints one `{"kernels": [...]}` line, then, as the last line,
+13. The tools' twins (`tools_phase`): every `cvc_tpu_torch/tools/`
+   tool once through its `main(argv)` at the flagship widths with short
+   windows, outputs in a temporary directory (its JSON holding every key
+   of the JAX tool's record in `experiments/`, and the card's name and
+   power limit), the launches of each against the counts its calls
+   imply; `export_attention` on a checkpoint trained here for one epoch
+   (its words equal to the eval CLI's predictions); the bf16 select's
+   tokens against the float32 select's; `throughput_table` at the video
+   width (10 frames x 128 slots, a 3072-d global feature), which
+   `video_phase` also holds against the plain path in float32 (a beam-5
+   batch's tokens, a train step's loss and gradients).
+14. Prints one `{"kernels": [...]}` line, then, as the last line,
    `{"ok": true, "device": {...}}`.
 
 Exits non-zero, with no result line, on any failure, when no CUDA device
@@ -152,18 +163,25 @@ from __future__ import annotations
 import json
 import math
 import statistics
-import subprocess
 import sys
 import time
 from functools import partial
 
-HBM_BYTES_PER_S = 3.35e12                    # H100 SXM
-PEAK_OPS = {"bfloat16": 989e12,              # dense bf16 tensor cores
-            "float32": 67e12}                # float32 outside tensor cores
+try:
+    # the card's peaks and the flagship shapes are the measurement tools'
+    # (cvc_tpu_torch/tools/benchlib.py: H100 SXM HBM 3.35 TB/s, dense bf16
+    # 989 TFLOP/s, float32 67 TFLOP/s; B 64, beam 5, 20 words)
+    from cvc_tpu_torch.tools.benchlib import (BATCH, BEAM,
+                                              HBM_BYTES_PER_S, PEAK_OPS,
+                                              SEQ, nvidia_smi_line)
+    from cvc_tpu_torch.tools import benchlib
+    from cvc_tpu_torch.utils.profiling import profile_report
+except ImportError as e:         # this script alone, outside a checkout
+    raise SystemExit(f"chip_smoke: cvc_tpu_torch is not importable here: "
+                     f"{e}")
+
 L2_BYTES = 50 * 2**20
-SEQ = 20
 STEPS = SEQ + 1                              # L = max_len + 1 decode steps
-BATCH, BEAM = 64, 5
 BEAM_WIDE = 10                               # two launches of the beam core
 N_REQUESTS, LIVE_REGIONS = 128, 100
 WINDOWS = 5                                  # timed windows of each rate
@@ -174,11 +192,12 @@ DEVICE = "cuda"
 
 
 def flagship_config():
-    """The serving model: ModelConfig's defaults are the flagship widths
-    (vocab 8704, E 512, H 1024, A 512, 2048-d features, 128 slots, 512
-    classes of width 128)."""
-    from cvc_tpu_torch.config import ModelConfig
-    return ModelConfig(seq_length=SEQ, drop_prob_lm=0.0)
+    """The serving model: benchlib's flagship widths (vocab 8704, E 512, H
+    1024, A 512, 2048-d features, 128 slots, 512 classes of width 128, 20
+    words) with dropout off, since the serving and `.pth` phases that use
+    it never train at these widths (benchlib keeps bench.py's 0.5 for its
+    train timers)."""
+    return benchlib.flagship_config(drop_prob_lm=0.0)
 
 # (abs, rel) tolerances of kernel against plain version. float32: sums in
 # another order and CUDA's expf/tanhf against PyTorch's. bf16: the same
@@ -322,15 +341,6 @@ def record(sm, results, key, label, dtype, fn, plain, sets, bytes_, ops, err,
     print("kernel " + json.dumps(line), flush=True)
     if key is not None:
         results[key] = line
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    if out.returncode != 0:
-        raise RuntimeError("nvidia-smi failed: " + out.stderr)
-    return out.stdout.strip().splitlines()[0]
 
 
 # ---------------------------------------------------------------------------
@@ -1446,68 +1456,29 @@ def throughput(sm: Smoke, cap, reqs, smi: str, label: str,
           f"{rates[-1]:.1f}) on {smi}", flush=True)
 
     if profile:
-        profile_report(sm, lambda: cap.decoder(cap.params, arrays),
+        profile_report(lambda: cap.decoder(cap.params, arrays),
                        f"one {label} decode of {BATCH}")
     return {"caption": caption_rate, "decoder": BATCH / per_batch}
-
-
-def profile_report(sm: Smoke, fn, label: str, top_n: int = 8) -> None:
-    """Runs fn once under torch.profiler and prints the card's busy time
-    (the union of kernel intervals) against the wall time, the number of
-    kernel launches, PyTorch's float and bf16 elementwise adds (the
-    kernels whose name holds `add<float>` or `add<c10::BFloat16>`: the
-    autograd sums of per-step gradients among them) and the top kernels
-    by device time."""
-    torch = sm.torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, cur_s, cur_e = 0.0, None, None
-    for a, b in spans:                       # union of kernel intervals
-        if cur_e is None or a > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = a, b
-        else:
-            cur_e = max(cur_e, b)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    by_name: dict = {}
-    for e in kernels:
-        t, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top_n]
-    print(f"profile: {label}: {wall_us:.0f} us wall under the profiler, "
-          f"kernels busy {busy:.0f} us ({busy / wall_us:.3f} of wall), "
-          f"{len(kernels)} kernel launches", flush=True)
-    for what, key in (("float", "add<float>"), ("bf16", "add<c10::BFloat16>")):
-        adds = [e for e in kernels if key in e.name]
-        print(f"profile:   {what} adds: {len(adds)} launches, "
-              f"{sum(e.time_range.elapsed_us() for e in adds):.1f} us",
-              flush=True)
-    for name, (t, n) in top:
-        print(f"profile:   {t:9.1f} us  {n:4d} x  {name[:90]}", flush=True)
 
 
 def compare_paths(sm: Smoke, cap_k, cap_p, reqs, label):
     """The kernel path against the plain path on the card, float32, token
     level."""
-    torch = sm.torch
-    match = total = 0
-    score_err = alpha_err = 0.0
+    pairs = []
     for s in range(0, len(reqs), cap_k.batch_size):
         arrays, _ = cap_k._pack(reqs[s:s + cap_k.batch_size])
-        rk = cap_k.decoder(cap_k.params, arrays)
-        rp = cap_p.decoder(cap_p.params, arrays)
+        pairs.append((cap_k.decoder(cap_k.params, arrays),
+                      cap_p.decoder(cap_p.params, arrays)))
+    check_agreement(sm, pairs, label)
+
+
+def check_agreement(sm: Smoke, pairs, label):
+    """`pairs` of (kernel path's, plain path's) decoder outputs on the same
+    batches, float32: >= 98% of tokens equal, and where a caption matches,
+    scores and alphas within 1e-3."""
+    match = total = 0
+    score_err = alpha_err = 0.0
+    for rk, rp in pairs:
         tk, tp = rk["tokens"], rp["tokens"]
         match += int((tk == tp).sum())
         total += tk.numel()
@@ -1688,7 +1659,7 @@ def train_phase(sm: Smoke, smi: str, counts: dict) -> None:
                   f"{max(times):.2f}) on {smi}", flush=True)
         for path, kw in TIMED_PATHS.items():
             if kw.get("use_pallas") is None:
-                profile_report(sm, runs[path][0],
+                profile_report(runs[path][0],
                                f"one {dname} train step of {TRAIN_BATCH}, "
                                f"{path}", top_n=10)
 
@@ -2162,7 +2133,7 @@ def ss_phase(sm: Smoke, smi: str, counts: dict, c3, ds) -> None:
         print(f"ss: {what} B={TRAIN_BATCH}: {statistics.median(t):.2f} ms "
               f"(median of {len(t)}, in turns; range {min(t):.2f}-"
               f"{max(t):.2f}) on {smi}", flush=True)
-    profile_report(sm, lambda: step(state, arrays, gen, SS_PROB),
+    profile_report(lambda: step(state, arrays, gen, SS_PROB),
                    f"one float32 scheduled-sampling step of {TRAIN_BATCH} "
                    f"(ss_prob {SS_PROB})")
 
@@ -2328,7 +2299,7 @@ def scst_phase(sm: Smoke, smi: str, counts: dict, c3, ds, params0) -> None:
           + ", ".join(f"{k} {statistics.median(v):.2f}"
                       for k, v in split.items())
           + f" ms on {smi}", flush=True)
-    profile_report(sm, lambda: scst_train_batch(
+    profile_report(lambda: scst_train_batch(
         state, arrays, b, ds, sampler, steps[0.0], rewarder, g_sample,
         g_step), f"one SCST iteration of {TRAIN_BATCH}, xe_weight 0")
 
@@ -2922,8 +2893,8 @@ def loop_phase(sm: Smoke, smi: str, counts: dict) -> None:
                      step_generator(DEVICE, cfg.train.seed + 1, state.step))
 
         epoch()                                   # warm
-        profile_report(sm, epoch, f"loop: one epoch ({spe} steps, the "
-                                  f"loop's feed) on {smi}")
+        profile_report(epoch, f"loop: one epoch ({spe} steps, the "
+                              f"loop's feed) on {smi}")
 
         missing = [name for name, _, _ in KERNEL_ROWS
                    if phase.get(name, 0) == 0]
@@ -3579,6 +3550,302 @@ def parallel_phase(sm: Smoke, smi: str, counts: dict) -> None:
                  f"{out['counts']}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the tools' twins, and the video width end to end
+
+TOOL_ITERS = 2                               # calls a timed window of a tool
+TOOL_SECS = 1.0                              # window of each serving rung
+EXPORT_LIMIT = 16                            # images export_attention takes
+SELECT_AGREE = 0.8                           # bf16 vs float32 select tokens
+
+# kernel launches of one call, predicted from the code: a beam-5 batch (the
+# beam core and the top-k once a step); the cyclical loss and its backward
+# (a train step's, ARGMAX_LAUNCHES); its forward alone (no gradient: the
+# forward kernels of a train step); the loss without the cycle (the decode
+# scan alone: 2 LSTM cells and one attention a step, one cross entropy)
+# and its gradient; the beam step's select alone
+BEAM_CALL = {"fused_beam_decoder_core": STEPS, "fused_topk_lse": STEPS}
+FWD_CALL = {"fused_lstm_gates": 4 * STEPS, "fused_additive_attention": STEPS,
+            "fused_masked_xent": 2}
+FWD_NOCYCLE = {"fused_lstm_gates": 2 * STEPS,
+               "fused_additive_attention": STEPS, "fused_masked_xent": 1}
+GRAD_NOCYCLE = dict(FWD_NOCYCLE, fused_lstm_gates_bwd=2 * STEPS,
+                    fused_additive_attention_bwd=STEPS,
+                    fused_masked_xent_bwd=1)
+SELECT_CALL = {"fused_topk_lse": STEPS}
+
+
+def launches(*terms) -> dict:
+    """The launches of `n` calls of each `(n, per-call launches)` term."""
+    out: dict = {}
+    for n, per in terms:
+        for k, v in per.items():
+            out[k] = out.get(k, 0) + n * v
+    return out
+
+
+def video_phase(sm: Smoke, smi: str, counts: dict, phase: dict) -> None:
+    """The c4 video width (benchlib.video_config: 10 frames x 128 slots,
+    1280 with 1000 live, a 3072-d global feature) on the kernels against
+    the plain path, float32, seeded weights and benchlib's batch: one
+    beam-5 batch of 64 (tokens >= 98% equal; scores and alphas where a
+    caption matches) and the loss and gradients of a train step (dropout
+    off; loss within 1e-5 relative, gradients at `grad_tol`, each 5%-off
+    copy rejected), the launches counted."""
+    torch = sm.torch
+    import dataclasses
+
+    from cvc_tpu_torch.config import EvalConfig
+    from cvc_tpu_torch.models import core
+    from cvc_tpu_torch.models.decoding import make_decoder
+
+    t0 = time.perf_counter()
+    base = benchlib.video_config(dtype="float32", drop_prob_lm=0.0)
+    params = core.init_params(torch.Generator().manual_seed(40), base,
+                              DEVICE)
+    arrays = benchlib.random_arrays(base, BATCH, seed=41, device=DEVICE)
+    kern = dataclasses.replace(base, use_pallas=True, pallas_select=True)
+    plain = dataclasses.replace(base, use_pallas=False, pallas_select=False,
+                                stacked_grad=False)
+    e_cfg = EvalConfig(beam_size=BEAM, max_length=SEQ, sample_method="beam")
+    label = f"video: S {base.total_regions} B={BATCH} float32"
+    rk, got = counted(sm, counts, lambda: make_decoder(
+        kern, e_cfg, DEVICE)(params, arrays))
+    phase_counts(phase, got)
+    check_launches(sm, f"{label} beam-5 batch", [got], BEAM_CALL)
+    rp = make_decoder(plain, e_cfg, DEVICE)(params, arrays)
+    check_agreement(sm, [(rk, rp)], f"{label} beam-5")
+    (loss_k, g_k), got = counted(sm, counts, lambda: loss_and_grads(
+        kern, params, arrays))
+    phase_counts(phase, got)
+    check_launches(sm, f"{label} loss and gradients", [got], ARGMAX_LAUNCHES)
+    loss_p, g_p = loss_and_grads(plain, params, arrays)
+    check_loss_and_grads(sm, f"{label} train, kernel vs plain path", loss_k,
+                         g_k, loss_p, g_p)
+    print(f"video: checks {time.perf_counter() - t0:.1f} s on {smi}",
+          flush=True)
+
+
+def tools_phase(sm: Smoke, smi: str, counts: dict) -> None:
+    """Phase 14: every tool's twin (`cvc_tpu_torch/tools/`) run once through
+    its `main(argv)` on the card at the flagship widths, with short windows
+    (TOOL_ITERS calls, TOOL_SECS) and outputs in a temporary directory:
+    each written JSON carries every key of its JAX counterpart's record in
+    `experiments/` (read as a schema only) and the card's name and power
+    limit, and the launch counters read around each tool equal the counts
+    its calls imply. export_attention runs on a checkpoint trained here for
+    one epoch on the synthetic world, its words equal to the eval CLI's
+    predictions; the bf16 select's tokens are held against the float32
+    select's (>= SELECT_AGREE, the share printed); throughput_table also
+    runs at the video width, and `video_phase` holds that width against
+    the plain path. Every kernel must launch in the phase."""
+    import glob
+    import importlib
+    import importlib.util
+    import os
+    import shutil
+    import tempfile
+
+    from cvc_tpu_torch import eval as eval_cli
+    from cvc_tpu_torch.data.datasets import load_dataset
+    from cvc_tpu_torch.data.pipeline import num_batches
+    from cvc_tpu_torch.data.vocab import Vocabulary
+    from cvc_tpu_torch.training.loop import train
+
+    root = tempfile.mkdtemp(prefix="cvc_tools_")
+    cache_before = os.environ.get("CVC_SYNTH_CACHE")
+    os.environ["CVC_SYNTH_CACHE"] = os.path.join(root, "synth")
+    phase: dict = {}
+    t_phase = time.perf_counter()
+    try:
+        def run(label, fn, expect):
+            """fn() counted; `expect` is the launches it implies, or a
+            function of its result that gives them."""
+            t0 = time.perf_counter()
+            out, got = counted(sm, counts, fn)
+            phase_counts(phase, got)
+            want = expect(out) if callable(expect) else expect
+            check_launches(sm, f"tools: {label} "
+                               f"({time.perf_counter() - t0:.1f} s)", [got],
+                           want)
+            return out
+
+        def main_of(name):
+            return importlib.import_module("cvc_tpu_torch.tools." + name).main
+
+        def tool(name, argv, expect):
+            """A measurement tool, its JSON held to the JAX tool's keys."""
+            module = importlib.import_module("cvc_tpu_torch.tools." + name)
+            path = os.path.join(root, name + ".json")
+            res = run(f"{name} {' '.join(argv)}", lambda: module.main(
+                argv + ["--out", path], device=DEVICE), expect)
+            with open(path) as f:
+                written = json.load(f)
+            schema = getattr(module, "SCHEMA", None)
+            missing = (benchlib.missing_keys(
+                written, benchlib.load_schema(schema)) if schema else [])
+            sm.check(not missing and written.get("platform") == "gpu"
+                     and written.get("nvidia_smi") == smi,
+                     f"tools: {name}: {len(benchlib.key_paths(written))} "
+                     f"keys written, every key of {schema or 'its record'}, "
+                     f"on {written.get('nvidia_smi')}"
+                     f"{'; missing ' + str(missing) if missing else ''}")
+            return written
+
+        # a checkpoint of the synthetic world: one epoch of the c3 config
+        cfg = loop_config(root, "export")
+        ds = load_dataset(cfg.data, cfg.model, "train")
+        spe = num_batches(ds, cfg.data.batch_size)
+        run("train 1 epoch + a beam-5 validation", lambda: train(
+            cfg, max_epochs=1, log_dir=os.path.join(root, "log"),
+            device=DEVICE), launches((spe, ARGMAX_LAUNCHES), (1, BEAM_CALL)))
+        ckpt = cfg.train.checkpoint_path
+
+        # build_vocab on the world's captions
+        ann, vfile = os.path.join(root, "ann.json"), os.path.join(root,
+                                                                  "v.json")
+        captions = [c for ex in ds.examples for c in ex.captions]
+        with open(ann, "w") as f:
+            json.dump({"images": [{"captions": list(ex.captions)}
+                                  for ex in ds.examples]}, f)
+        vocab = run("build_vocab", lambda: main_of("build_vocab")(
+            ["--annotation_file", ann, "--out", vfile, "--min_count", "1"],
+            device=DEVICE), {})
+        want = Vocabulary.build(captions, min_count=1).itow
+        sm.check(vocab.itow == want == Vocabulary.load(vfile).itow,
+                 f"tools: build_vocab: {len(vocab)} words from "
+                 f"{len(captions)} captions, as Vocabulary.build")
+
+        # convert_gvd_data (host work through h5py)
+        if importlib.util.find_spec("h5py") is None:
+            print("tools: convert_gvd_data not run: this machine has no "
+                  "h5py (held byte-equal to tools/convert_gvd_data.py on "
+                  "the CPU by tests/test_torch_tools.py)", flush=True)
+        else:
+            import h5py
+            import numpy as np
+            src, src_json = (os.path.join(root, n)
+                             for n in ("src.h5", "src.json"))
+            with h5py.File(src, "w") as f:
+                f.create_dataset("img1_features",
+                                 data=np.ones((5, 16), np.float32))
+                f.create_dataset("img1_boxes", data=np.array(
+                    [[0, 0, 50, 50]] * 5, np.float32))
+            with open(src_json, "w") as f:
+                json.dump([{"id": "img1", "width": 100, "height": 100,
+                            "captions": ["a dog runs"]}], f)
+            out_h5 = os.path.join(root, "o.h5")
+            n = run("convert_gvd_data", lambda: main_of("convert_gvd_data")(
+                ["--src_features", src, "--src_annotations", src_json,
+                 "--out_features", out_h5, "--out_annotations",
+                 os.path.join(root, "o.json")], device=DEVICE), {})
+            with h5py.File(out_h5) as f:
+                box = f["img1/boxes"][0].tolist()
+            sm.check(n == 1 and box == [0.0, 0.0, 0.5, 0.5],
+                     f"tools: convert_gvd_data: {n} image, boxes {box}")
+
+        # export_attention against the eval CLI on the same checkpoint
+        vis = os.path.join(root, "vis")
+        preds, samples = run("export_attention", lambda: main_of(
+            "export_attention")(["--start_from", ckpt, "--split", "val",
+                                 "--out_dir", vis, "--limit",
+                                 str(EXPORT_LIMIT), "--beam_size",
+                                 str(BEAM), "--png"], device=DEVICE),
+            BEAM_CALL)
+        run("eval CLI beam 5", lambda: eval_cli.main(
+            ["--start_from", ckpt, "--split", "val", "--batch_size",
+             str(EXPORT_LIMIT), "--out_dir", os.path.join(root, "eval"),
+             "--beam_size", str(BEAM)], device=DEVICE),
+            launches((LOOP_VAL_IMAGES // EXPORT_LIMIT, BEAM_CALL)))
+        with open(glob.glob(os.path.join(root, "eval",
+                                         "*_val_preds.json"))[0]) as f:
+            want = {p["image_id"]: p["caption"]
+                    for p in json.load(f)["predictions"]}
+        same = len(preds) == EXPORT_LIMIT
+        for p, smp in zip(preds, samples):
+            with open(os.path.join(vis, f"{p['image_id']}.json")) as f:
+                got = json.load(f)
+            same &= (p["caption"] == want[p["image_id"]] == got["caption"]
+                     and [w["word"] for w in got["attention"]]
+                     == smp["words"] == p["caption"].split())
+        sm.check(bool(same), f"tools: export_attention: {len(preds)} "
+                             f"captions, words equal to the eval CLI's "
+                             f"predictions; "
+                             f"{len(glob.glob(os.path.join(vis, '*.png')))}"
+                             f" PNGs")
+
+        # profile_step: the flagship float32 train step, then beam 5
+        steps = 2
+        for beam in (False, True):
+            trace = os.path.join(root, "trace_beam" if beam else "trace")
+            argv = ["--out", trace, "--steps", str(steps)] + (
+                ["--beam"] if beam else [])
+            rep = run("profile_step " + " ".join(argv[2:]), lambda: main_of(
+                "profile_step")(argv, device=DEVICE), launches(
+                (1 + steps, BEAM_CALL if beam else ARGMAX_LAUNCHES)))
+            with open(os.path.join(trace, "trace.json")) as f:
+                events = len(json.load(f)["traceEvents"])
+            sm.check(rep["launches"] > 0 and rep["busy_us"] > 0
+                     and events > rep["launches"],
+                     f"tools: profile_step{' --beam' if beam else ''}: "
+                     f"{rep['ms_per_iter']:.2f} ms an iteration, "
+                     f"{rep['launches']} kernels, {events} trace events")
+
+        # the measurement tools; a timed piece is one warm call and
+        # benchlib.WINDOWS windows of TOOL_ITERS calls
+        n = 1 + benchlib.WINDOWS * TOOL_ITERS
+        it = str(TOOL_ITERS)
+        b = str(BATCH)
+        # bench_serving: a decode a batch of each rung, one warm call before
+        # the first rung, the bf16 rung and the resident rung, and the
+        # Captioner's warm call of 4 batches
+        tool("bench_serving", ["--batch", b, "--secs", str(TOOL_SECS),
+                               "--with-request-path"],
+             lambda r: launches((7 + sum(m["batches"]
+                                         for m in r["modes"].values()),
+                                 BEAM_CALL)))
+        for video in (False, True):
+            rows = tool("throughput_table", ["--batches", b, "--iters", it,
+                                             it] + (["--video"] if video
+                                                    else []),
+                        launches((n, BEAM_CALL), (n, ARGMAX_LAUNCHES)))
+            sm.check(all(r["caps_per_sec"] > 0 and r["train_step_ms"] > 0
+                         for r in rows["rows"]),
+                     f"tools: throughput_table {rows['config']} (S "
+                     f"{rows['total_regions']}): rates finite")
+        tool("bench_pallas", ["--batch", b, "--iters", it, it],
+             launches((2 * n, BEAM_CALL), (2 * n, ARGMAX_LAUNCHES)))
+        sel = tool("bench_beam_bf16", ["--batches", b, "--iters", it],
+                   launches((2 * (n + 1), BEAM_CALL)))
+        agree = sel["token_agreement"][b]
+        sm.check(agree >= SELECT_AGREE,
+                 f"tools: bench_beam_bf16: {agree:.4f} of tokens equal "
+                 f"between the bf16 and the float32 select (want >= "
+                 f"{SELECT_AGREE}; bf16 serving against the plain path read "
+                 f"0.98)")
+        tool("bench_optimizer", ["--iters", it], {})
+        tool("bench_train_decomp", ["--reps", it, "--grad-batches", b,
+                                    "--forward-batches", b],
+             launches((2 * n, ARGMAX_LAUNCHES), (2 * n, FWD_CALL)))
+        tool("attribution_bench", ["--batch", b, "--iters", it, "--train"],
+             launches((2 * n, BEAM_CALL), (n, SELECT_CALL),
+                      (n, ARGMAX_LAUNCHES), (n, FWD_CALL),
+                      (n, FWD_NOCYCLE), (n, GRAD_NOCYCLE)))
+
+        video_phase(sm, smi, counts, phase)
+        missing = [name for name, _, _ in KERNEL_ROWS
+                   if phase.get(name, 0) == 0]
+        sm.check(not missing, f"tools: every kernel launched in the phase "
+                              f"({json.dumps(phase)}; missing {missing})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if cache_before is None:
+            os.environ.pop("CVC_SYNTH_CACHE", None)
+        else:
+            os.environ["CVC_SYNTH_CACHE"] = cache_before
+    print(f"tools: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 KERNEL_ROWS = [
     ("fused_lstm_gates", "cvc_tpu_torch/csrc/lstm.cu",
      "cvc_tpu/ops/pallas/lstm.py:25"),
@@ -3657,6 +3924,7 @@ def main(argv: list[str]) -> int:
     pth_phase(sm, smi, counts)
     native_phase(sm, smi, counts, c3, ds, xe_params)
     parallel_phase(sm, smi, counts)
+    tools_phase(sm, smi, counts)
 
     kernels = []
     for name, source, replaces in KERNEL_ROWS:

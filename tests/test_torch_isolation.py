@@ -20,21 +20,30 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
-             or m == "cvc_tpu" or m.startswith("cvc_tpu."))
+             or m == "cvc_tpu" or m.startswith("cvc_tpu.") or m == "bench")
 print(len(names), bad)
 assert not bad, bad
 for new in ("cvc_tpu_torch.models.torch_import", "cvc_tpu_torch.native",
             "cvc_tpu_torch.parallel.mesh", "cvc_tpu_torch.parallel.launch",
             "cvc_tpu_torch.tools.import_torch_checkpoint",
             "cvc_tpu_torch.utils.debug", "cvc_tpu_torch.utils.profiling",
-            "cvc_tpu_torch.utils.visualize"):
+            "cvc_tpu_torch.utils.visualize") + tuple(
+            "cvc_tpu_torch.tools." + t for t in TOOLS):
     assert new in names, new
 """
+
+# the tools' twins (`tools/*.py` that drive the JAX package) and their
+# shared helpers
+TOOLS = ("benchlib", "build_vocab", "convert_gvd_data", "export_attention",
+         "profile_step", "bench_serving", "throughput_table", "bench_pallas",
+         "bench_beam_bf16", "bench_optimizer", "bench_train_decomp",
+         "attribution_bench")
 
 
 def test_port_imports_no_jax_and_no_cvc_tpu():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    r = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+    probe = f"TOOLS = {TOOLS!r}\n" + _PROBE
+    r = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     assert int(r.stdout.split()[0]) >= 15     # every module was imported
@@ -158,3 +167,25 @@ def test_importer_parallel_and_tool_entry_points_default_to_cuda(
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):
             call()
+
+
+@pytest.mark.parametrize("tool", TOOLS[1:])
+def test_tool_twins_default_to_cuda_and_raise_without_it(monkeypatch,
+                                                         tmp_path, tool):
+    import importlib
+    module = importlib.import_module("cvc_tpu_torch.tools." + tool)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = {"build_vocab": ["--annotation_file", "a.json", "--out", "v"],
+            "convert_gvd_data": ["--src_features", "s.h5",
+                                 "--src_annotations", "s.json",
+                                 "--out_features", "o.h5",
+                                 "--out_annotations", "o.json"],
+            "export_attention": ["--start_from", "ckpt"],
+            }.get(tool, []) + (["--out", str(tmp_path / "out")]
+                               if tool not in ("build_vocab",
+                                               "convert_gvd_data",
+                                               "export_attention") else [])
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="cuda"):
+        module.main(argv)
+    assert os.listdir(tmp_path) == []
