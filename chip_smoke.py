@@ -51,7 +51,8 @@
 3. Drives the serving path at flagship width (vocab 8704, E 512, H 1024,
    A 512, 2048-d features, 128 slots with 100 live, 20 words) with seeded
    random weights: `Captioner.build(..., beam_size=5, batch_size=64)` on
-   128 requests in bf16 and float32 at pipeline depths 1 and 2, and
+   128 requests in bf16 and float32 (and 512 at pipeline depths 1, 2
+   and 4, the results identical), and
    greedy decoding. Every launch counter is set to 0 before each path
    and read after it. In float32 the kernel path's tokens are compared
    with the plain path's on the card. Reports beam-5 and greedy
@@ -144,7 +145,17 @@
    width (10 frames x 128 slots, a 3072-d global feature), which
    `video_phase` also holds against the plain path in float32 (a beam-5
    batch's tokens, a train step's loss and gradients).
-14. Prints one `{"kernels": [...]}` line, then, as the last line,
+14. The experiment twins (`experiments_phase`): rows 1-8 at the
+   experiments' widths (H 192, A 96, V 128, float32) against their plain
+   versions and timed, rows 3, 4 and 7 at S 36 and 72; then every
+   `cvc_tpu_torch/experiments/` twin once with --smoke (a tiny world,
+   batch and widths, epochs / 16), the CLI scripts' train and eval runs
+   in this process, outputs in a temporary directory: the launch counters
+   read around each twin against the counts its knobs, or the argv of its
+   CLI runs, imply (runs over two ranks launch in processes of their
+   own), each JSON holding every key path of the JAX record it mirrors,
+   and every kernel launched in the phase.
+15. Prints one `{"kernels": [...]}` line, then, as the last line,
    `{"ok": true, "device": {...}}`.
 
 Exits non-zero, with no result line, on any failure, when no CUDA device
@@ -1312,6 +1323,10 @@ def serving_rates(sm: Smoke, smi: str) -> dict:
     return rates
 
 
+PIPELINE_DEPTHS = (1, 2, 4)                  # caption() depths compared
+PIPELINE_REPEAT = 4                          # the requests sent that often
+
+
 def serving_phase(sm: Smoke, smi: str, counts: dict) -> None:
     torch = sm.torch
     import dataclasses
@@ -1353,9 +1368,15 @@ def serving_phase(sm: Smoke, smi: str, counts: dict) -> None:
         out1 = drive(cap, f"beam-5 {dname}", {
             "fused_lstm_gates": 0, "fused_additive_attention": 0,
             "fused_beam_decoder_core": STEPS, "fused_topk_lse": STEPS})
-        out2 = cap.caption(reqs, pipeline_depth=2)
-        sm.check(out1 == out2, f"beam-5 {dname}: pipeline_depth 1 and 2 "
-                               f"give identical results")
+        # 8 batches in flight at up to depth 4: the copies run on a
+        # stream of their own, and the results stay identical, in order
+        deep = reqs * PIPELINE_REPEAT
+        same = all(cap.caption(deep, pipeline_depth=d)
+                   == out1 * PIPELINE_REPEAT for d in PIPELINE_DEPTHS)
+        sm.check(same, f"beam-5 {dname}: {len(deep)} requests "
+                       f"({math.ceil(len(deep) / BATCH)} batches) at "
+                       f"pipeline_depth {PIPELINE_DEPTHS} give identical "
+                       f"results, in request order")
         if dname == "bfloat16":
             throughput(sm, cap, reqs, smi, "beam-5 bf16")
         else:
@@ -3846,6 +3867,473 @@ def tools_phase(sm: Smoke, smi: str, counts: dict) -> None:
     print(f"tools: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the experiments/ twins
+# ---------------------------------------------------------------------------
+
+# the experiments' model (the v3c world's; the lab scripts' evaluation)
+EXP_B, EXP_H, EXP_A, EXP_V, EXP_SEQ = 128, 192, 96, 128, 16
+EXP_SLOTS = (36, 72)                         # the v3 and v3c worlds
+EXP_EVAL_BATCH, EXP_BEAM = 64, 3
+
+
+def experiments_kernel_phase(sm: Smoke) -> None:
+    """Rows 1-8 at the experiments' widths (H 192, A 96, V 128, float32)
+    against their plain versions, each timed: rows 3, 4 (with and without
+    dv) and 7 (beam 3, the lab scripts' B 64) at S 36 and 72, all slots
+    live with one fully masked image and at scattered slots; rows 1 and 2
+    at R 128 and the merged scan's 256; rows 5 and 6 at N 128 x 17; row 8
+    at beam 3 (N 192, k 3) and greedy (N 64, k 1)."""
+    torch = sm.torch
+    from cvc_tpu_torch.ops.kernels import (attention, decoder_step, lstm,
+                                           topk_select, xent)
+    gen = torch.Generator(device=sm.dev).manual_seed(15)
+    dname, dt, sz = "float32", torch.float32, 4
+    B, H, A, V = EXP_B, EXP_H, EXP_A, EXP_V
+    L = EXP_SEQ + 1
+    for S in EXP_SLOTS:
+        for live, masked in ((S, (5,)), (S // 2 + 1, ())):
+            what = f"experiments: {dname} S={S} live={live}"
+            mask = scattered_mask(torch, gen, sm.dev, B, S, live, masked)
+            n_live = int(mask.sum())
+            args = bwd_inputs(torch, gen, sm.dev, B, S, A, H, mask, dt)
+            err_f = check_fwd(sm, f"fused_additive_attention {what} B={B}",
+                              args[:5], dname, live)
+            err_b = check_bwd(sm, f"fused_additive_attention_bwd {what} "
+                                  f"B={B}", args, dname)
+            check_bwd_without_dv(sm, f"fused_additive_attention_bwd {what}",
+                                 args)
+            mask_e = mask[:EXP_EVAL_BATCH]
+            cargs = core_inputs(torch, gen, sm.dev, EXP_EVAL_BATCH, EXP_BEAM,
+                                S, A, H, mask_e, dt)
+            err_c = check_core(sm, f"fused_beam_decoder_core {what} "
+                                   f"B={EXP_EVAL_BATCH} K={EXP_BEAM}",
+                               cargs, dname, live)
+            if live != S:
+                continue
+            fb = attn_bytes(B, S, A, H, mask, sz)
+            sets = [bwd_inputs(torch, gen, sm.dev, B, S, A, H, mask, dt)
+                    for _ in range(n_sets(fb))]
+            record(sm, {}, None, f"experiments: B={B} S={S} A={A} H={H}",
+                   dname, attention.fused_additive_attention,
+                   attention.additive_attention_plain,
+                   [a[:5] for a in sets], fb, n_live * (3 * A + 2 * H),
+                   err_f)
+            bb = ((n_live * (A + H) + B * S * A + 2 * B * A + 2 * A + B * H)
+                  * sz + 3 * B * S * 4)
+            record(sm, {}, None, f"experiments: B={B} S={S} A={A} H={H} "
+                                 f"without dv", dname,
+                   partial(attention.fused_additive_attention_bwd,
+                           with_dv=False),
+                   partial(attention.additive_attention_bwd_plain,
+                           with_dv=False), sets, bb,
+                   n_live * (12 * A + 4 * H), err_b)
+            cb = core_bytes(EXP_EVAL_BATCH, EXP_BEAM, S, A, H, mask_e, sz)
+            record(sm, {}, None, f"experiments: B={EXP_EVAL_BATCH} "
+                                 f"K={EXP_BEAM} S={S} A={A} H={H}", dname,
+                   decoder_step.fused_beam_decoder_core,
+                   decoder_step.beam_core_oracle,
+                   [core_inputs(torch, gen, sm.dev, EXP_EVAL_BATCH, EXP_BEAM,
+                                S, A, H, mask_e, dt)
+                    for _ in range(n_sets(cb))], cb,
+                   core_ops(EXP_EVAL_BATCH, EXP_BEAM, A, H, mask_e), err_c)
+    for R in (B, 2 * B):
+        label = f"experiments: {dname} R={R} H={H}"
+        sets = [lstm_inputs(torch, gen, sm.dev, R, H, dt)
+                for _ in range(n_sets(R * H * 7 * sz))]
+        poison(torch, sm.dev)
+        err = sm.compare(f"fused_lstm_gates {label}",
+                         lstm.fused_lstm_gates(*sets[0]),
+                         lstm.lstm_gates_plain(*sets[0]), dname, ("h", "c"))
+        record(sm, {}, None, f"experiments: R={R} H={H}", dname,
+               lstm.fused_lstm_gates, lstm.lstm_gates_plain, sets,
+               R * H * 7 * sz, R * H * 10, err)
+        bsets = [lstm_bwd_inputs(torch, gen, sm.dev, R, H, dt)
+                 for _ in range(n_sets(R * H * 12 * sz))]
+        poison(torch, sm.dev)
+        got = lstm.fused_lstm_gates_bwd(*bsets[0])
+        want = lstm.lstm_gates_bwd_plain(*bsets[0])
+        err = sm.compare(f"fused_lstm_gates_bwd {label}", got, want, dname,
+                         ("dgates", "dc"),
+                         {n: grad_tol(dname, w)
+                          for n, w in zip(("dgates", "dc"), want)})
+        record(sm, {}, None, f"experiments: R={R} H={H} bwd", dname,
+               lstm.fused_lstm_gates_bwd, lstm.lstm_gates_bwd_plain, bsets,
+               R * H * 12 * sz, R * H * 40, err)
+    N = B * L
+    sets = [xent_inputs(torch, gen, sm.dev, N, V, dt)
+            for _ in range(n_sets(N * V * sz))]
+    n_rows = sum(int((a[2] != 0).sum()) for a in sets) / len(sets)
+    label = f"fused_masked_xent experiments: {dname} N={N} V={V}"
+    err_f = check_xent(sm, label, *sets[0])
+    g = torch.tensor([0.37], device=sm.dev)
+    bsets = [(*a, g) for a in sets]
+    poison(torch, sm.dev)
+    want = xent.masked_xent_bwd_plain(*bsets[0])
+    err_b = sm.compare(label + " bwd", (xent.fused_masked_xent_bwd(
+        *bsets[0]),), (want,), dname, ("dlogits",),
+        {"dlogits": grad_tol(dname, want)})
+    record(sm, {}, None, f"experiments: N={N} V={V} ({n_rows:.0f} rows "
+                         f"live)", dname, xent.fused_masked_xent_rows,
+           xent.masked_xent_rows_plain, sets, n_rows * V * sz + N * 12,
+           n_rows * V * 4, err_f)
+    record(sm, {}, None, f"experiments: N={N} V={V} ({n_rows:.0f} rows "
+                         f"live) bwd", dname, xent.fused_masked_xent_bwd,
+           xent.masked_xent_bwd_plain, bsets,
+           (n_rows + N) * V * sz + N * 8 + 4, n_rows * V * 6, err_b)
+    for N, k in ((EXP_EVAL_BATCH * EXP_BEAM, EXP_BEAM), (EXP_EVAL_BATCH, 1)):
+        bytes_ = N * V * sz + N * k * 8 + N * 4
+        sets = [topk_inputs(torch, gen, sm.dev, N, V, k, dt)
+                for _ in range(n_sets(bytes_))]
+        err = check_topk(sm, f"fused_topk_lse experiments: {dname} N={N} "
+                             f"V={V} k={k}", *sets[0], pad=4)
+        record(sm, {}, None, f"experiments: N={N} V={V} k={k}", dname,
+               topk_select.fused_topk_lse, topk_select.topk_lse_plain,
+               sets, bytes_, 2 * N * V, err)
+
+
+# kernel launches of one call at L decode steps, predicted from the code
+# (see argmax_launches): a train step without the cycle (the decode scan
+# and one cross entropy), with GT-word queries (the merged scan), an SCST
+# iteration (SCST_LAUNCHES at L), a teacher-forced decode without a
+# gradient (the GT-sentence probe, the fast probe), the reconstruction
+# probe's batch (a decode and a reconstruct scan, learned and uniform β:
+# its cross entropy is PyTorch's), a greedy batch and a beam batch
+def nocycle_launches(L: int) -> dict:
+    return {"fused_lstm_gates": 2 * L, "fused_lstm_gates_bwd": 2 * L,
+            "fused_additive_attention": L, "fused_additive_attention_bwd": L,
+            "fused_masked_xent": 1, "fused_masked_xent_bwd": 1}
+
+
+def gt_launches(L: int) -> dict:
+    return dict(argmax_launches(L), fused_lstm_gates=2 * L,
+                fused_lstm_gates_bwd=2 * L)
+
+
+def scst_launches(L: int) -> dict:
+    return {"fused_lstm_gates": 6 * L, "fused_lstm_gates_bwd": 2 * L,
+            "fused_additive_attention": 3 * L,
+            "fused_additive_attention_bwd": L, "fused_topk_lse": L}
+
+
+def tf_launches(L: int) -> dict:
+    return {"fused_lstm_gates": 2 * L, "fused_additive_attention": L}
+
+
+def recon_launches(L: int) -> dict:
+    return {"fused_lstm_gates": 8 * L, "fused_additive_attention": 2 * L}
+
+
+def greedy_launches(L: int) -> dict:
+    return {"fused_lstm_gates": 2 * L, "fused_additive_attention": L,
+            "fused_topk_lse": L}
+
+
+def beam_launches(L: int, K: int) -> dict:
+    from cvc_tpu_torch.ops.kernels import decoder_step
+    return {"fused_beam_decoder_core": decoder_step.beam_groups(K) * L,
+            "fused_topk_lse": L}
+
+
+def train_unit(stage, L: int) -> dict:
+    """A train step's launches in a `loop.cycle_stage` stage."""
+    cycle_on, gt_q, _ = stage
+    if not cycle_on:
+        return nocycle_launches(L)
+    return gt_launches(L) if gt_q else argmax_launches(L)
+
+
+def split_sizes(ds) -> tuple:
+    """(images, image-caption pairs) of a dataset."""
+    return len(ds), sum(len(ds.get(i).captions) for i in range(len(ds)))
+
+
+def saved_epoch(ckpt: str) -> int:
+    """The epoch a checkpoint directory's latest save recorded."""
+    import os
+    steps = [int(n) for n in os.listdir(ckpt) if n.isdigit()]
+    with open(os.path.join(ckpt, str(max(steps)), "infos.json")) as f:
+        return int(json.load(f)["epoch"])
+
+
+def implied_train(argv: list) -> dict:
+    """The launches `python -m cvc_tpu_torch.train <argv>` implies in this
+    process: each epoch's steps in its cycle stage (or SCST iterations),
+    each validation's decode batches (greedy, or beam at the validation
+    beam) and, with --cycle_probes, the GT-sentence and reconstruction
+    probes' batches; none for a run over several ranks (each in a process
+    of its own)."""
+    from cvc_tpu_torch.config import config_from_args
+    from cvc_tpu_torch.data.datasets import load_dataset
+    from cvc_tpu_torch.data.pipeline import num_batches
+    from cvc_tpu_torch.training.loop import cycle_stage
+    cfg = config_from_args(argv)
+    t, m, d = cfg.train, cfg.model, cfg.data
+    if t.num_devices > 1:
+        return {}
+    L, B = m.seq_length + 1, d.batch_size
+    train_ds = load_dataset(d, m, "train")
+    spe = (split_sizes(train_ds)[1] // B if d.device_resident
+           else num_batches(train_ds, B))
+    images, pairs = split_sizes(load_dataset(d, m, "val"))
+    beam = t.beam_size or cfg.eval.beam_size
+    val = (beam_launches(L, beam) if beam > 1 else greedy_launches(L))
+    start = saved_epoch(t.start_from) if t.start_from else 0
+    terms = []
+    for epoch in range(start, t.max_epochs):
+        stage = cycle_stage(t, m, epoch)
+        if 0 <= t.self_critical_after <= epoch:
+            terms.append((spe, scst_launches(L)))
+            if t.scst_xe_weight > 0:
+                terms.append((spe, train_unit(stage, L)))
+        else:
+            terms.append((spe, train_unit(stage, L)))
+        if ((epoch + 1) % t.val_every_epoch == 0
+                and (t.language_eval or t.grounding_eval)):
+            terms.append((-(-images // B), val))
+            if t.cycle_probes:
+                terms += [(-(-pairs // B), tf_launches(L)),
+                          (-(-pairs // B), recon_launches(L))]
+    return launches(*terms)
+
+
+def implied_eval(argv: list) -> dict:
+    """The launches `python -m cvc_tpu_torch.eval <argv>` implies: its
+    decode batches (greedy or beam) over the split's images and, in
+    GT-sentence mode and with --cycle_probes, the teacher-forced and
+    reconstruction probes' batches over its pairs."""
+    from cvc_tpu_torch.config import config_from_args
+    from cvc_tpu_torch.data.datasets import load_dataset
+    from cvc_tpu_torch.training.checkpoint import load_config
+    from cvc_tpu_torch.training.loop import _finalize_model_config
+    cfg = config_from_args(argv)
+    saved = load_config(cfg.train.start_from)
+    B = cfg.data.batch_size
+    ds = load_dataset(saved.data, saved.model, cfg.eval.split)
+    _finalize_model_config(saved, ds)
+    # the decode runs max_length + 1 steps (the CLI's --seq_length), the
+    # teacher-forced probes the checkpoint's captions
+    L, L_tf = cfg.eval.max_length + 1, saved.model.seq_length + 1
+    images, pairs = split_sizes(ds)
+    e = cfg.eval
+    dec = (greedy_launches(L) if e.sample_method == "greedy"
+           or e.beam_size == 1 else beam_launches(L, e.beam_size))
+    terms = [(-(-images // B), dec)]
+    if e.gt_sentence_mode:
+        terms.append((-(-pairs // B), tf_launches(L_tf)))
+    if e.cycle_probes:
+        terms += [(-(-pairs // B), tf_launches(L_tf)),
+                  (-(-pairs // B), recon_launches(L_tf))]
+    return launches(*terms)
+
+
+def final_metrics_launches(L: int, images: int, pairs: int) -> list:
+    """The lab scripts' final evaluation (`cycle_ablation.final_metrics`):
+    beam 3 by the decoder and again for the localizer's grounding, and the
+    GT-sentence probe, in batches of 64."""
+    n_img, n_pair = -(-images // EXP_EVAL_BATCH), -(-pairs // EXP_EVAL_BATCH)
+    return [(2 * n_img, beam_launches(L, EXP_BEAM)),
+            (n_pair, tf_launches(L))]
+
+
+def lab_world(n: int, split: str, **kw):
+    from cvc_tpu_torch.data.synthetic import make_synthetic_dataset
+    from cvc_tpu_torch.experiments import common
+    return make_synthetic_dataset(num_images=n, split=split, seed=0,
+                                  seq_length=16,
+                                  feat_dim=common.SMOKE_WIDTHS["feat_dim"],
+                                  **kw)
+
+
+def implied_v3(v3) -> dict:
+    """The v3 twin's smoke run: per seed the plain warmup, then each arm
+    from the branch point (boot in GT stages until its switch), a fast
+    probe (one teacher-forced decode of the whole val split) every probe
+    epoch, and each arm's final evaluation and reconstruction probe."""
+    from cvc_tpu_torch.experiments import common
+    k = v3.knobs(True)
+    world = dict(num_regions=k["REGIONS"], num_classes=k["CLASSES"],
+                 word_order="shuffled", unique_colors=True)
+    spe = split_sizes(lab_world(k["IMAGES"], "train", **world))[1] \
+        // common.SMOKE_BATCH
+    images, pairs = split_sizes(lab_world(common.SMOKE_VAL_IMAGES, "val",
+                                          **world))
+    L, E, W = EXP_SEQ + 1, k["EPOCHS"], k["WARMUP"]
+    plain, cyc, gt = (nocycle_launches(L), argmax_launches(L),
+                      gt_launches(L))
+    units = {"plain": lambda e: plain, "cycle": lambda e: cyc,
+             "cycle_gt": lambda e: gt,
+             "boot": lambda e: gt if e < W + k["BOOT_EPOCHS"] else cyc}
+
+    def probes(e0, e1):
+        n = sum(1 for e in range(e0, e1)
+                if (e + 1) % k["PROBE"] == 0 or e == e1 - 1)
+        return (n, tf_launches(L))
+
+    terms = [(W * spe, plain), probes(0, W)]
+    for arm in k["ARMS"].split(","):
+        terms += [(spe, units[arm](e)) for e in range(W, E)]
+        terms += [probes(W, E), *final_metrics_launches(L, images, pairs),
+                  (-(-pairs // EXP_EVAL_BATCH), recon_launches(L))]
+    return launches(*[(len(k["SEEDS"].split(",")) * n, u)
+                      for n, u in terms])
+
+
+def implied_lab(epochs: int, cycle_from: int, probe_every: int) -> dict:
+    """A lab twin's smoke run (cycle_ablation, _v2, _long): a plain arm
+    and a cycle arm (argmax queries from epoch `cycle_from`), each trained
+    from scratch; with `probe_every`, a GT-sentence probe every so many
+    epochs; then each arm's final evaluation."""
+    from cvc_tpu_torch.experiments import common
+    spe = split_sizes(lab_world(common.SMOKE_IMAGES, "train",
+                                num_regions=36))[1] // common.SMOKE_BATCH
+    images, pairs = split_sizes(lab_world(common.SMOKE_VAL_IMAGES, "val",
+                                          num_regions=36))
+    L = EXP_SEQ + 1
+    terms = []
+    for cycle in (False, True):
+        terms += [(spe, argmax_launches(L) if cycle and e >= cycle_from
+                   else nocycle_launches(L)) for e in range(epochs)]
+        if probe_every:
+            terms.append((epochs // probe_every
+                          * -(-pairs // EXP_EVAL_BATCH), tf_launches(L)))
+        terms += final_metrics_launches(L, images, pairs)
+    return launches(*terms)
+
+
+def experiments_phase(sm: Smoke, smi: str, counts: dict) -> None:
+    """Phase 15: every twin of `cvc_tpu_torch/experiments/` once on the
+    card with --smoke (a tiny world, batch and widths, epochs / 16),
+    outputs in a temporary directory, the CLIs run in this process
+    (--in_process), after `experiments_kernel_phase`. The launch counters
+    are read around each twin against the counts the code implies: the
+    lab twins' from their knobs, the CLI twins' from the argv of every
+    train and eval CLI run they make (`implied_train`, `implied_eval`;
+    a run over ranks launches in processes of its own). Each JSON holds
+    every key path of the JAX record it mirrors (`common.record_missing`);
+    every kernel must launch in the phase."""
+    import importlib
+    import os
+    import shutil
+    import tempfile
+
+    import cvc_tpu_torch.eval as eval_cli
+    import cvc_tpu_torch.train as train_cli
+    from cvc_tpu_torch.experiments import common
+
+    t_phase = time.perf_counter()
+    experiments_kernel_phase(sm)
+    root = tempfile.mkdtemp(prefix="cvc_exp_")
+    work = os.path.join(root, "runs")
+    cache_before = os.environ.get("CVC_SYNTH_CACHE")
+    os.environ["CVC_SYNTH_CACHE"] = os.path.join(root, "synth")
+    mains = (train_cli.main, eval_cli.main)
+    calls: list = []
+
+    def recording(kind, fn):
+        def main(argv=None, device="cuda"):
+            calls.append((kind, list(argv)))
+            return fn(argv, device=device)
+        return main
+
+    train_cli.main = recording("train", mains[0])
+    eval_cli.main = recording("eval", mains[1])
+    phase: dict = {}
+    try:
+        def twin(name, argv, lab_expect=None, cli=True, renamed=None):
+            module = importlib.import_module(
+                "cvc_tpu_torch.experiments." + name)
+            out = os.path.join(root, name + ".json")
+            argv = [*argv, "--out", out]
+            if name != "collect_cli_ablation":
+                argv += ["--smoke", "--device", DEVICE, "--workdir", work]
+            if cli and name != "collect_cli_ablation":
+                argv.append("--in_process")
+            del calls[:]
+            t0 = time.perf_counter()
+            ok = True
+            try:
+                _, got = counted(sm, counts, lambda: module.main(argv))
+            except SystemExit as e:      # a twin stops on a failed run
+                ok, got = False, {}
+                print(f"experiments: {name} stopped: {e}", flush=True)
+            phase_counts(phase, got)
+            want = (lab_expect if lab_expect is not None else launches(*(
+                (1, implied_train(a) if k == "train" else implied_eval(a))
+                for k, a in calls)))
+            n_cli = len(calls)
+            check_launches(sm, f"experiments: {name} ({n_cli} CLI runs, "
+                               f"{time.perf_counter() - t0:.1f} s)",
+                           [got], want)
+            written = common.load_json(out, {})
+            record = getattr(module, "RECORD", None) or module.SCHEMA
+            missing = common.record_missing(
+                written, record, renamed or getattr(module, "RENAMED", None))
+            sm.check(ok and bool(written) and not missing,
+                     f"experiments: {name}: {len(common.record_paths(written))}"
+                     f" key paths, every one of "
+                     f"{record if isinstance(record, str) else 'SCHEMA'}"
+                     f"{'; missing ' + str(missing) if missing else ''}")
+            return written
+
+        v3 = importlib.import_module("cvc_tpu_torch.experiments."
+                                     "cycle_ablation_v3")
+        res = twin("cycle_ablation_v3", [], implied_v3(v3), cli=False)
+        finals = [a["final"] for s in res.get("seeds", {}).values()
+                  for a in s.values()]
+        sm.check(len(finals) == 4 and all(
+            math.isfinite(f[k]) for f in finals for k in (
+                "CIDEr", "F1_loc", "attn_accuracy",
+                "vhat_dependence_argmax_probe")),
+            f"experiments: cycle_ablation_v3: {len(finals)} arms, finals "
+            f"finite")
+        twin("cycle_ablation", [], implied_lab(5, 0, 0), cli=False)
+        twin("cycle_ablation_v2", [], implied_lab(4, 1, 1), cli=False)
+        twin("cycle_ablation_long", [], implied_lab(6, 0, 1),
+             cli=False)
+        scst = twin("run_scst_demo", ["--seeds", "123"])
+        sm.check(set(scst.get("runs", {})) == {
+            "scst_base_s123", "xecont_s123", "scst_s123", "summary_s123"},
+            f"experiments: run_scst_demo: runs {sorted(scst.get('runs', {}))}")
+        twin("run_argmax_ablation", ["--tag", "cli_abl", "--arms",
+                                     "plain,boot", "--seeds", "123"])
+        logs = [os.path.join(work, f"cli_abl_{arm}_s123.log")
+                for arm in ("plain", "boot")]
+        twin("collect_cli_ablation", logs, {})
+        twin("run_argmax_continuation", [
+            "--seeds", "123", "--src",
+            f"123:{os.path.join(work, 'cli_abl_plain_s123')}"])
+        twin("run_argmax_replication", ["--seeds", "31", "--arms",
+                                        "plaincont,argmax"])
+        twin("run_scratch_cycle", ["--jobs", "11:cw01"])
+        twin("run_manufactured_amplify", ["--seeds", "43"])
+        twin("run_noisy_world", ["--seeds", "61"])
+        for name in ("run_mesh_lift", "run_mesh_convergence"):
+            res = twin(name, [])
+            sm.check(len(res.get("mesh_8dev", {}).get("val_trajectory", []))
+                     == len(res.get("single_device", {})
+                            .get("val_trajectory", [])) > 0,
+                     f"experiments: {name}: {common.SMOKE_RANKS} ranks and "
+                     f"one process validated alike, final delta "
+                     f"{res.get('final_delta')}")
+        from cvc_tpu_torch.experiments import summarize_r5
+        summarize_r5.main(["--dir", root])
+        missing = [name for name, _, _ in KERNEL_ROWS
+                   if phase.get(name, 0) == 0]
+        sm.check(not missing, f"experiments: every kernel launched in the "
+                              f"phase ({json.dumps(phase)}; missing "
+                              f"{missing})")
+    finally:
+        train_cli.main, eval_cli.main = mains
+        shutil.rmtree(root, ignore_errors=True)
+        if cache_before is None:
+            os.environ.pop("CVC_SYNTH_CACHE", None)
+        else:
+            os.environ["CVC_SYNTH_CACHE"] = cache_before
+    print(f"experiments: phase {time.perf_counter() - t_phase:.1f} s on "
+          f"{smi}", flush=True)
+
+
 KERNEL_ROWS = [
     ("fused_lstm_gates", "cvc_tpu_torch/csrc/lstm.cu",
      "cvc_tpu/ops/pallas/lstm.py:25"),
@@ -3925,6 +4413,7 @@ def main(argv: list[str]) -> int:
     native_phase(sm, smi, counts, c3, ds, xe_params)
     parallel_phase(sm, smi, counts)
     tools_phase(sm, smi, counts)
+    experiments_phase(sm, smi, counts)
 
     kernels = []
     for name, source, replaces in KERNEL_ROWS:

@@ -336,7 +336,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="log cycle-mechanism diagnostics at every "
                         "validation (tf_attn_acc, localizer-beta acc, "
                         "v-hat dependence)")
-    # Parallelism (the reference's --mGPUs); multi-GPU is not ported yet.
+    # Parallelism (the reference's --mGPUs): one process a rank, NCCL or
+    # gloo (parallel/launch.py, parallel/mesh.py).
     p.add_argument("--mGPUs", "--num_devices", dest="num_devices", type=int,
                    default=0,
                    help="devices for data-parallel training; 0 = all "

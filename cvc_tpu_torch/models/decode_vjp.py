@@ -17,7 +17,12 @@ and sums them with L - 1 adds, one launch each. This backward instead
 - forms every weight gradient after the loop as ONE [·, L·B] × [L·B, ·]
   product, and v_enc's gradient as ONE product of the stacked attention
   weights and context gradients; dkeys and w_v's gradient are summed over
-  the steps in the reference's types (the working type and float32).
+  the steps in the reference's types (the working type and float32);
+- forms only the gradients autograd asks for (`ctx.needs_input_grad`):
+  with the weights frozen it takes no weight product, with v_enc or keys
+  frozen neither their product nor their sum, and returns None for each
+  (the reverse loop's carries, which every gradient needs, always run).
+  Under `jax.jit` the reference drops unused cotangents the same way.
 
 The forward runs `core.step`, the per-step path's own math, with the
 kernels' forwards called directly (no autograd inside), so its values
@@ -116,6 +121,13 @@ class _ScanDecodeStacked(torch.autograd.Function):
          c_lang_all, *weights) = ctx.saved_tensors
         w = dict(zip(ctx.names, weights))
         use_attention = ctx.use_attention
+        # what autograd asks for: pre1, ctx_seq, v_enc, keys, each weight
+        needs = ctx.needs_input_grad
+        need_pre1, need_ctx_seq, need_v, need_keys = needs[3:7]
+        need_w = {n: needs[13 + i] for i, n in enumerate(ctx.names)}
+        need_dq = need_w.get("w_qh") or need_w.get("b_q")
+        need_dg1 = need_pre1 or need_w["w_hl"] or need_w["w_ah"]
+        need_dg2 = any(need_w[n] for n in ("w_cx", "w_ax", "w_lh", "b_l"))
         if ctx.use_kernels:
             lstm_bwd = lstm.fused_lstm_gates_bwd
             attn_bwd = attention.fused_additive_attention_bwd
@@ -139,7 +151,7 @@ class _ScanDecodeStacked(torch.autograd.Function):
             q_seq = h_att_seq @ w["w_qh"] + w["b_q"]            # [L, B, A]
             if g_alpha is not None:
                 g_alpha = g_alpha.float().contiguous()
-            dkeys = torch.zeros_like(keys)
+            dkeys = torch.zeros_like(keys) if need_keys else None
         dg1, dg2, dq, d_ctx_att, d_ctx_in, dw_v = [], [], [], [], [], []
         for t in range(L - 1, -1, -1):
             # the language LSTM: its h feeds the output and the next step
@@ -155,47 +167,65 @@ class _ScanDecodeStacked(torch.autograd.Function):
                     alpha_seq[t], d_att,
                     g_alpha=None if g_alpha is None else g_alpha[t],
                     with_dv=False)
-                dkeys += dkeys_t
+                if need_keys:
+                    dkeys += dkeys_t
                 dh_att_t = torch.addmm(dh_att_t, dq_t, w_t["w_qh"])
-                dq.append(dq_t)
-                dw_v.append(dw_v_t)
-                d_ctx_att.append(d_att)
-                if mix is not None:
+                if need_dq:
+                    dq.append(dq_t)
+                if need_w["w_v"]:
+                    dw_v.append(dw_v_t)
+                if need_v:
+                    d_ctx_att.append(d_att)
+                if mix is not None and need_ctx_seq:
                     d_ctx_in.append(mix * d_ctx)
-            else:
+            elif need_ctx_seq:
                 d_ctx_in.append(d_ctx)
             # the attention LSTM
             dg1_t, dc_att = lstm_bwd(g1_seq[t], c_att_all[t], dh_att_t,
                                      dc_att)
             dh_lang = torch.addmm(dh_lang, dg1_t, w_t["w_hl"])
             dh_att = dg1_t @ w_t["w_ah"]
-            dg1.append(dg1_t)
-            dg2.append(dg2_t)
+            if need_dg1:
+                dg1.append(dg1_t)
+            if need_dg2:
+                dg2.append(dg2_t)
 
         def seq(xs):
             """The reverse loop's list of steps as one [L, ...] tensor."""
             return torch.stack(xs[::-1]) if xs else None
 
+        def bias(d):
+            return d.sum((0, 1), dtype=torch.float32).to(d.dtype)
+
         dg1_seq, dg2_seq = seq(dg1), seq(dg2)
-        f32 = torch.float32
-        dw = {"w_hl": _stack_mm(h_lang_prev, dg1_seq),
-              "w_ah": _stack_mm(h_att_prev, dg1_seq),
-              "w_cx": _stack_mm(ctx_post_seq, dg2_seq),
-              "w_ax": _stack_mm(h_att_seq, dg2_seq),
-              "w_lh": _stack_mm(h_lang_prev, dg2_seq),
-              "b_l": dg2_seq.sum((0, 1), dtype=f32).to(dg2_seq.dtype)}
-        dv_enc = dkeys_out = None
+        # each weight's gradient: (its stacked input, its stacked dgates)
+        products = {"w_hl": (h_lang_prev, dg1_seq),
+                    "w_ah": (h_att_prev, dg1_seq),
+                    "w_cx": (ctx_post_seq, dg2_seq),
+                    "w_ax": (h_att_seq, dg2_seq),
+                    "w_lh": (h_lang_prev, dg2_seq)}
+        dw = {n: _stack_mm(*xs) for n, xs in products.items() if need_w[n]}
+        if need_w["b_l"]:
+            dw["b_l"] = bias(dg2_seq)
+        dv_enc = None
         if use_attention:
             dq_seq = seq(dq)
-            dw["w_qh"] = _stack_mm(h_att_seq, dq_seq)
-            dw["b_q"] = dq_seq.sum((0, 1), dtype=f32).to(dq_seq.dtype)
-            dw["w_v"] = torch.stack(dw_v).sum(0, dtype=f32).to(
-                w["w_v"].dtype)
-            # sum over steps of alpha_t ⊗ d_ctx_t as ONE product [B, S, H]
-            dv_enc = torch.bmm(alpha_seq.to(v_enc.dtype).permute(1, 2, 0),
-                               seq(d_ctx_att).transpose(0, 1))
-            dkeys_out = dkeys
+            if need_w["w_qh"]:
+                dw["w_qh"] = _stack_mm(h_att_seq, dq_seq)
+            if need_w["b_q"]:
+                dw["b_q"] = bias(dq_seq)
+            if need_w["w_v"]:
+                dw["w_v"] = torch.stack(dw_v).sum(0, dtype=torch.float32).to(
+                    w["w_v"].dtype)
+            if need_v:
+                # sum over steps of alpha_t ⊗ d_ctx_t as ONE product
+                # [B, S, H]
+                dv_enc = torch.bmm(
+                    alpha_seq.to(v_enc.dtype).permute(1, 2, 0),
+                    seq(d_ctx_att).transpose(0, 1))
+        else:
+            dkeys = None
         d_ctx_seq = seq(d_ctx_in) if ctx.has_ctx_seq else None
-        return (None, None, None, dg1_seq, d_ctx_seq, dv_enc, dkeys_out,
-                None, None, dh_att, dc_att, dh_lang, dc_lang,
+        return (None, None, None, dg1_seq if need_pre1 else None, d_ctx_seq,
+                dv_enc, dkeys, None, None, dh_att, dc_att, dh_lang, dc_lang,
                 *(dw.get(n) for n in ctx.names))

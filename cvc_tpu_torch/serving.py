@@ -37,9 +37,11 @@ class Captioner:
     decoder: object
     batch_size: int
     device: torch.device
-    # pinned request buffers (CUDA), used in turn; see _staging
+    # pinned request buffers (CUDA), used in turn, and the stream that
+    # copies them to the card; see _staging
     _pinned: list = field(default_factory=list, repr=False)
     _turn: int = 0
+    _copy_stream: object = field(default=None, repr=False)
 
     @staticmethod
     def from_checkpoint(checkpoint_dir: str, beam_size: int = 5,
@@ -124,9 +126,11 @@ class Captioner:
         `pipeline_depth > 1` keeps that many batches in flight: CUDA
         launches are asynchronous, so batch i's device-to-host read waits
         until batch i + depth - 1 has been submitted, and the host packs
-        the next batch while the card decodes. Results are identical at
-        any depth, in request order. One call at a time per Captioner: the
-        request buffers are reused."""
+        the next batch while the card decodes. Packing waits for no decode:
+        a batch's copy to the card runs on a stream of its own, which the
+        decode waits for (see _pack). Results are identical at any depth,
+        in request order. One call at a time per Captioner: the request
+        buffers are reused."""
         out: list[dict] = []
         inflight: deque = deque()
         depth = max(1, int(pipeline_depth))
@@ -190,20 +194,30 @@ class Captioner:
                     g = np.asarray(r["global_feat"], np.float32)
                     gfeat[i, :g.shape[0]] = g[:mc.global_feat_dim]
         boxes = geom[:len(chunk), :, :4].copy()
-        arrays = {k: t.to(self.device, non_blocking=True)
-                  for k, t in host.items()}
-        if turn is not None:                    # the set is free again once
-            done = torch.cuda.Event()           # these copies have run
-            done.record(torch.cuda.current_stream(self.device))
-            self._pinned[turn] = (host, done)
+        if turn is None:                        # the CPU: no copy
+            return {k: t.to(self.device) for k, t in host.items()}, boxes
+        # the copies run on the copy stream, in the order of the batches,
+        # behind no decode; the decode waits for them, and the set is free
+        # again once they have run
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self._copy_stream):
+            arrays = {k: t.to(self.device, non_blocking=True)
+                      for k, t in host.items()}
+            done = torch.cuda.Event()
+            done.record(self._copy_stream)
+        compute.wait_event(done)
+        for t in arrays.values():       # allocated on the copy stream,
+            t.record_stream(compute)    # freed after the decode's use
+        self._pinned[turn] = (host, done)
         return arrays, boxes
 
     def _staging(self):
         """Host tensors for the next batch, and the index of their pinned
-        set. On CUDA two sets of pinned buffers are used in turn, so the
-        copy to the card needs no wait on the work queued before it; a set
-        is refilled only after its last copy has run. On the CPU the
-        tensors are fresh (the device tensors share their memory)."""
+        set. On CUDA two sets of pinned buffers are used in turn; a set is
+        refilled only after its own copy to the card has run, which waits
+        only for the copies before it on the copy stream, never for a
+        decode. On the CPU the tensors are fresh (the device tensors share
+        their memory)."""
         mc = self.model_cfg
         B, S = self.batch_size, mc.total_regions
         shapes = {"feats": ((B, S, mc.feat_dim), torch.float32),
@@ -219,6 +233,7 @@ class Captioner:
             self._pinned = [({k: torch.empty(shape, dtype=dt, pin_memory=True)
                               for k, (shape, dt) in shapes.items()}, None)
                             for _ in range(2)]
+            self._copy_stream = torch.cuda.Stream(self.device)
         turn = self._turn
         self._turn = 1 - turn
         host, done = self._pinned[turn]

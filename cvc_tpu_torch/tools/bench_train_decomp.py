@@ -4,11 +4,10 @@ its JSON), at the flagship widths in bf16:
 
   A. the sequential data-gradient chain: the gradient with respect to the
      input features only (the parameters do not require grad, so autograd
-     forms none of the products outside the decode scans; the
-     stacked-gradient scan's backward, one autograd Function, still forms
-     its weight gradients), against the full gradient and the forward
-     alone, and against a per-step latency floor: an L-step chain of one
-     dependent 8x8 product + tanh, the least a step of a scan costs.
+     forms no weight product, the stacked-gradient scan's backward
+     included), against the full gradient and the forward alone, and
+     against a per-step latency floor: an L-step chain of one dependent
+     8x8 product + tanh, the least a step of a scan costs.
   B. the forward alone at B in {64, 256, 512, 1024}: ms an image and MFU
      against the batch (if they plateau, rows are not the constraint).
 
@@ -97,9 +96,7 @@ def main(argv=None, device="cuda"):
             "forward_ms": t_fwd,
             "weight_grad_share_ms": t_full - t_data,
             "note": "input_grad_only = forward + sequential data-grad "
-                    "chain (the stacked scan's backward forms its weight "
-                    "gradients too); full - input_only ~ the weight-grad "
-                    "products outside the scans",
+                    "chain; full - input_only ~ the weight-grad products",
         })
         print(rows[-1], flush=True)
 

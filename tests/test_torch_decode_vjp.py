@@ -381,3 +381,79 @@ def test_kernel_calls_per_path(monkeypatch):
                     use_pallas=True, **kw)
         assert calls == {k: n * (fwd if "bwd" not in k else 1)
                          for k, n in want.items()}, kw
+
+
+FROZEN = {"weights": lambda k: k.startswith("w_") or k.startswith("b_"),
+          "v_enc_keys": lambda k: k in ("v_enc", "keys"),
+          "nothing": lambda k: False}
+
+
+@pytest.mark.parametrize("kernels", [True, False])
+@pytest.mark.parametrize("use_attention,with_mix", [(True, False),
+                                                    (False, False),
+                                                    (True, True)])
+@pytest.mark.parametrize("frozen", list(FROZEN))
+def test_stacked_backward_forms_only_asked_gradients(
+        frozen, use_attention, with_mix, kernels, monkeypatch):
+    """The backward reads ctx.needs_input_grad: with the weights frozen it
+    forms no weight product, with v_enc and keys frozen no dv_enc product
+    and no dkeys sum, and returns None for each; every gradient still
+    asked for is bit-equal to the one formed when nothing is frozen."""
+    from cvc_tpu_torch.models import decode_vjp
+    rng = np.random.default_rng(11)
+    L, B, S, H, A = 4, 3, 6, 8, 12
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    base = {"w_hl": f(H, 4 * H), "w_ah": f(H, 4 * H), "w_qh": f(H, A),
+            "b_q": f(A), "w_v": f(A), "w_cx": f(H, 4 * H),
+            "w_ax": f(H, 4 * H), "w_lh": f(H, 4 * H), "b_l": f(4 * H),
+            "pre1": f(L, B, 4 * H), "ctx_seq": f(L, B, H),
+            "v_enc": f(B, S, H), "keys": f(B, S, A)}
+    base = {k: v * 0.3 if k[:2] in ("w_", "b_") else v
+            for k, v in base.items()}
+    carry0 = [f(B, H) for _ in range(4)]
+    mask = torch.from_numpy((rng.uniform(size=(B, S)) < 0.7)
+                            .astype(np.float32))
+    mix = torch.tensor([[0.0], [1.0], [0.0]]) if with_mix else None
+    probe = [f(L, B, H), f(L, B, S)]
+    calls = {"_stack_mm": 0, "bmm": 0}
+    stack_mm, bmm = decode_vjp._stack_mm, torch.bmm
+
+    def counting(name, fn):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    def run(frozen_fn):
+        xs = {k: v.clone().requires_grad_(not frozen_fn(k))
+              for k, v in base.items()}
+        carry = [c.clone().requires_grad_(True) for c in carry0]
+        ws = {k: xs[k] for k in base if k[:2] in ("w_", "b_")}
+        h_seq, alpha_seq, out = scan_decode_stacked(
+            ws, xs["pre1"], xs["ctx_seq"], xs["v_enc"], xs["keys"], mask,
+            mix, carry, use_attention=use_attention, use_kernels=kernels)
+        loss = (h_seq * probe[0]).sum() + (alpha_seq * probe[1]).sum() \
+            + sum(c.sum() for c in out)
+        for k in calls:
+            calls[k] = 0
+        loss.backward()
+        return ({k: x.grad for k, x in xs.items()},
+                [c.grad for c in carry], dict(calls))
+
+    monkeypatch.setattr(decode_vjp, "_stack_mm",
+                        counting("_stack_mm", stack_mm))
+    monkeypatch.setattr(torch, "bmm", counting("bmm", bmm))
+    want, want_carry, _ = run(FROZEN["nothing"])
+    got, got_carry, n = run(FROZEN[frozen])
+    for k, g in got.items():
+        if FROZEN[frozen](k):
+            assert g is None, k
+        elif want[k] is None:
+            assert g is None, k
+        else:
+            assert torch.equal(g, want[k]), k
+    assert all(torch.equal(a, b) for a, b in zip(got_carry, want_carry))
+    products = 6 if use_attention else 5          # w_qh only with attention
+    assert n["_stack_mm"] == (0 if frozen == "weights" else products)
+    assert n["bmm"] == (1 if use_attention and frozen != "v_enc_keys"
+                        else 0)

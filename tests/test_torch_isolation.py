@@ -28,7 +28,8 @@ for new in ("cvc_tpu_torch.models.torch_import", "cvc_tpu_torch.native",
             "cvc_tpu_torch.tools.import_torch_checkpoint",
             "cvc_tpu_torch.utils.debug", "cvc_tpu_torch.utils.profiling",
             "cvc_tpu_torch.utils.visualize") + tuple(
-            "cvc_tpu_torch.tools." + t for t in TOOLS):
+            "cvc_tpu_torch.tools." + t for t in TOOLS) + tuple(
+            "cvc_tpu_torch.experiments." + t for t in EXPERIMENTS):
     assert new in names, new
 """
 
@@ -40,9 +41,22 @@ TOOLS = ("benchlib", "build_vocab", "convert_gvd_data", "export_attention",
          "attribution_bench")
 
 
+# the twins of the research scripts in `experiments/`, and their shared
+# helpers; the lab twins and the CLI scripts take --device
+LAB_TWINS = ("cycle_ablation_v3", "cycle_ablation", "cycle_ablation_v2",
+             "cycle_ablation_long")
+CLI_TWINS = ("run_scst_demo", "run_scratch_cycle", "run_argmax_ablation",
+             "run_argmax_continuation", "run_argmax_replication",
+             "run_manufactured_amplify", "run_noisy_world", "run_mesh_lift",
+             "run_mesh_convergence")
+EXPERIMENTS = ("common", *LAB_TWINS, *CLI_TWINS, "collect_cli_ablation",
+               "summarize_r5")
+
+
 def test_port_imports_no_jax_and_no_cvc_tpu():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    probe = f"TOOLS = {TOOLS!r}\n" + _PROBE
+    probe = (f"TOOLS = {TOOLS!r}\nEXPERIMENTS = {EXPERIMENTS!r}\n"
+             + _PROBE)
     r = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
@@ -185,6 +199,23 @@ def test_tool_twins_default_to_cuda_and_raise_without_it(monkeypatch,
                                if tool not in ("build_vocab",
                                                "convert_gvd_data",
                                                "export_attention") else [])
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="cuda"):
+        module.main(argv)
+    assert os.listdir(tmp_path) == []
+
+
+@pytest.mark.parametrize("twin", LAB_TWINS + CLI_TWINS)
+def test_experiment_twins_default_to_cuda_and_raise_without_it(
+        monkeypatch, tmp_path, twin):
+    """Every twin that runs the model takes --device, default cuda, and
+    without a GPU raises before it trains or writes anything."""
+    import importlib
+    module = importlib.import_module("cvc_tpu_torch.experiments." + twin)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = (["--tag", "t"] if twin == "run_argmax_ablation" else []) + [
+        "--workdir", str(tmp_path / "work"), "--out",
+        str(tmp_path / "out.json")]
     monkeypatch.chdir(tmp_path)
     with pytest.raises(RuntimeError, match="cuda"):
         module.main(argv)
