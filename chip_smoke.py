@@ -41,13 +41,11 @@
    (R 1, H 8) timed beside it as the floor of a launch's time.
    Each gradient is held to a tolerance set by its typical element, and
    the same tolerance must reject a copy 5% off in its typical elements
-   (and, for the cross entropy, a softmax scaled by 1.05). The bf16
-   vocabulary head's product and gradients are held against autograd of
-   its float32 form. Times each kernel, its plain version and, where one PyTorch call
-   computes the same function, that call, and computes each kernel's
-   bound: the larger of the bytes it must move over 3.35 TB/s and its
-   operations over the card's peak for the type. Then checks that each
-   wrapper raises on a width or an alignment its kernel does not take.
+   (and, for the cross entropy, a softmax scaled by 1.05). Times each
+   kernel, its plain version and, where one PyTorch call computes the
+   same function, that call, and computes each kernel's bound: the larger
+   of the bytes it must move over 3.35 TB/s and its operations over the
+   card's peak for the type.
 3. Drives the serving path at flagship width (vocab 8704, E 512, H 1024,
    A 512, 2048-d features, 128 slots with 100 live, 20 words) with seeded
    random weights: `Captioner.build(..., beam_size=5, batch_size=64)` on
@@ -61,7 +59,10 @@
    against the plain path's; beam 17, above the top-k's 16, is refused
    when the Captioner is built under auto dispatch, naming the rule, and
    builds with pallas_select=False.
-4. Drives the training path at the widths of
+4. Run before phase 3, in phase 2's section: the bf16 vocabulary head's
+   product and gradients against autograd of its float32 form, and each
+   wrapper's refusal of a width or an alignment its kernel does not take.
+5. Drives the training path at the widths of
    `configs/c3_flickr_cyclical.json` with seeded random weights and one
    seeded random batch of 64: `make_train_step` for 5 steps in float32
    and bf16 through the stacked-gradient scan (losses and gradient norms
@@ -75,7 +76,7 @@
    step's, at `grad_tol`; ms a step of the stacked and per-step kernel
    paths and the plain path in both types, with one profiled step of each
    kernel path (launches, float adds, busy time).
-5. Trains on the synthetic world (`data/synthetic.py`, built at the c3
+6. Trains on the synthetic world (`data/synthetic.py`, built at the c3
    widths from a seed, 256 images; build time and host ms a batch of
    `make_batches` inline, with 1 and 4 assembly threads, printed): the c3
    config's f32 kernel path for 3 epochs (the last epoch's mean loss
@@ -83,25 +84,25 @@
    (vocab 128, E 64, H 128, A 64, D 256, 16 regions, 14 words, 64 images,
    B 32, Adam 3e-3) for 30 epochs through the kernels: the loss falls by
    3 nats or more and the attention entropy to under half.
-6. Scheduled sampling at the c3 widths, f32, on the kernel path: 3 steps
+7. Scheduled sampling at the c3 widths, f32, on the kernel path: 3 steps
    at ss_prob 0.25 (ms a step against the teacher-forced step); at ss_prob
    0 the loss and gradients against the teacher-forced per-step scan's,
    at ss_prob 1 against the plain path teacher-forced on the words the
    kernel path fed, at `grad_tol` with the 5%-off copies rejected.
-7. SCST at the c3 widths, B 64, f32, on the synthetic world: 3 iterations
+8. SCST at the c3 widths, B 64, f32, on the synthetic world: 3 iterations
    of `scst_train_batch` with xe_weight 0 and one with 0.5 (rewards
    finite, tokens in range with PAD after the first EOS), ms an iteration
    split into sample, reward (host) and update, and the policy-gradient
    loss and gradients of the kernel path against the plain path's on
    fixed sampled tokens and advantages.
-8. The region transformer: the c3 config with obj_interact, one f32 train
+9. The region transformer: the c3 config with obj_interact, one f32 train
    step (loss and gradients against the plain path's) and beam-5 serving
    (tokens against the plain path's); then in bf16, which follows the
    JAX package's type promotion (encode_regions float32, every kernel
    launched on float32 inputs, tokens against the plain path's).
-   Phases 5 to 8 read the launch counters around every step, iteration
+   Phases 6 to 9 read the launch counters around every step, iteration
    or batch against the counts the code implies.
-9. The main path as users run it (`loop_phase`): the c3 config on the
+10. The main path as users run it (`loop_phase`): the c3 config on the
    synthetic world (256 train and 64 val images, V 128 from its 44 words,
    B 64, f32), checkpoints in a temporary directory: `training.loop.train`
    for 2 epochs validating at beam 5 (infos, best CIDEr, the mean loss
@@ -117,24 +118,24 @@
    a validation pass split into device decode and host scoring, a
    checkpoint's save (host copy, write) and restore, and the card's busy
    share of one profiled epoch.
-10. A reference `.pth` (`pth_phase`): a state_dict at the flagship
+11. A reference `.pth` (`pth_phase`): a state_dict at the flagship
    widths (checkpoint vocabulary 8700, a `module.` prefix, an alias)
    through the import tool (timed), `Captioner.from_torch(.pth)` at beam 5
    in bf16 (tokens equal to the tool's npz's; in float32 >= 98% the plain
    path's), and one epoch of the train CLI with `--import_torch`.
-11. The C++ host libraries (`native_phase`; both built with g++ from
+12. The C++ host libraries (`native_phase`; both built with g++ from
    `cvc_tpu_torch/csrc/host/` at the start, and required to load):
    `make_batches` packed by C++ bit-equal to numpy's, ms a batch each way
    inline and with 4 threads; the SCST reward's CIDEr-D within 1e-9 of
    Python's, ms each way; an SCST iteration split with the C++ reward.
-12. Ranks (`parallel_phase`): two ranks over gloo sharing the card, each
+13. Ranks (`parallel_phase`): two ranks over gloo sharing the card, each
    against the one-process run of the same 64 images: c3 f32 steps with
    dropout on and off over 2 data ranks and over 1 data x 2 model ranks
    (loss, gradients at `grad_tol`, parameters after Adam), a resident step
    over a ShardedDeviceDataset, an SCST iteration and a beam-5 validation
    pass; then a world of one over NCCL through `train`; launches a step
    on each rank.
-13. The tools' twins (`tools_phase`): every `cvc_tpu_torch/tools/`
+14. The tools' twins (`tools_phase`): every `cvc_tpu_torch/tools/`
    tool once through its `main(argv)` at the flagship widths with short
    windows, outputs in a temporary directory (its JSON holding every key
    of the JAX tool's record in `experiments/`, and the card's name and
@@ -145,7 +146,7 @@
    width (10 frames x 128 slots, a 3072-d global feature), which
    `video_phase` also holds against the plain path in float32 (a beam-5
    batch's tokens, a train step's loss and gradients).
-14. The experiment twins (`experiments_phase`): rows 1-8 at the
+15. The experiment twins (`experiments_phase`): rows 1-8 at the
    experiments' widths (H 192, A 96, V 128, float32) against their plain
    versions and timed, rows 3, 4 and 7 at S 36 and 72; then every
    `cvc_tpu_torch/experiments/` twin once with --smoke (a tiny world,
@@ -155,8 +156,33 @@
    CLI runs, imply (runs over two ranks launch in processes of their
    own), each JSON holding every key path of the JAX record it mirrors,
    and every kernel launched in the phase.
-15. Prints one `{"kernels": [...]}` line, then, as the last line,
-   `{"ok": true, "device": {...}}`.
+16. The bench twin (`bench_phase`): first every kernel row at the
+   flavors' shapes that no other phase holds (the B 256 decode and train
+   step, B 64 at 128 slots, --fp32's float32 train step, --video's 1280
+   slots) against its plain version; then `python -m cvc_tpu_torch.bench`
+   through its main(argv), the default flavor in full (beam-5 B 64 and
+   256, the 30 s sustained run, the train step at B 64 and 256) and
+   --fp32, --video, --obj-interact and --no-pallas without the serving
+   point, --pallas without training: each JSON line holds bench.py's keys
+   for its flags and the card's name and power limit, every number above
+   0, the launches those of its decoder calls and train steps; --pallas
+   decodes the default's tokens.
+17. The shipped presets (`presets_phase`): c5's first step over its 8
+   ranks (4 data x 2 model, gloo on the one card) against one process,
+   float32 at phase 13's tolerances, bf16 by its loss, its gradient norm
+   before the clip and each gradient's distance from float32 within 3
+   times the one process's, a planted fault (a data rank's share missing
+   from the sum) failing that; every rank's launches checked. Then for
+   c1, c2, c4 and c5 from `configs/`, on the synthetic world: every kernel
+   row its paths run against its plain version at the preset's own
+   widths, type, batch and beam (c1's 40 slots, c4's 1040, c5's H 1280 in
+   bf16, timed), one epoch of the train CLI and the eval CLI (the
+   preset's own eval), with the launches their argv imply. Each phase's
+   seconds are printed.
+18. Prints one `{"kernels": [...]}` line (rows 1 and 2 with PyTorch's
+   fused LSTM cell, `torch.ops.aten._thnn_fused_lstm_cell` and its
+   backward, as their library yardstick, or the reason it is missing),
+   then, as the last line, `{"ok": true, "device": {...}}`.
 
 Exits non-zero, with no result line, on any failure, when no CUDA device
 is present, or when the port's package is not beside this script.
@@ -171,6 +197,7 @@ run parent, change, change, parent in one call to compare two versions.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -336,9 +363,11 @@ def bound(bytes_: float, ops: float, dtype: str) -> tuple[float, str]:
 
 
 def record(sm, results, key, label, dtype, fn, plain, sets, bytes_, ops, err,
-           library=None, iters=200):
+           library=None, iters=200, library_why=None):
     """Times `fn`, `plain` and `library` (if any) over the input `sets`,
-    prints one `kernel {...}` line and keeps it under `key` (if any)."""
+    prints one `kernel {...}` line and keeps it under `key` (if any).
+    `library_why` says why a kernel with a PyTorch yardstick has no
+    library time (the op is missing or raised)."""
     ms, host_ms = sm.time_ms([lambda a=a: fn(*a) for a in sets], iters)
     plain_ms = sm.time_ms([lambda a=a: plain(*a) for a in sets[:2]],
                           max(10, iters // 20))[0]
@@ -349,6 +378,8 @@ def record(sm, results, key, label, dtype, fn, plain, sets, bytes_, ops, err,
                 bound_ms=b_ms, bound_us=b_ms * 1e3, bound_by=b_by,
                 library_ms=lib_ms, max_abs_err=err,
                 host_us_per_call=host_ms * 1e3)
+    if library_why:
+        line["library_why"] = library_why
     print("kernel " + json.dumps(line), flush=True)
     if key is not None:
         results[key] = line
@@ -485,29 +516,90 @@ def phase_line(sm, label, stamps, phases) -> None:
           f"{float(total.max()):.2f} ({stamps.shape[0]} blocks, "
           f"{sm.cycles_per_ms() / 1e3:.1f} cycles/us)", flush=True)
 
-def lstm_library(sm, label, args, want, dname):
-    """`torch._thnn_fused_lstm_cell` as the yardstick of the LSTM gates
-    forward, where this PyTorch has it and it agrees with the plain
-    version on `args`; else None. It reads a second gate tensor (the
-    hidden-to-hidden product, zeros here), 4/7 more bytes than the
-    kernel. Timed only: the port never calls it."""
+def aten_op(name):
+    """`torch.ops.aten.<name>` and None, or None and why this PyTorch
+    lacks it."""
+    import torch
+    op = getattr(torch.ops.aten, name, None)
+    if op is None:
+        return None, (f"torch {torch.__version__} has no "
+                      f"torch.ops.aten.{name}")
+    return op, None
+
+
+def raised(label, name, e) -> str:
+    """Why a library op is not the yardstick: it raised `e` (printed)."""
+    why = f"torch.ops.aten.{name} raises: {str(e).splitlines()[0][:160]}"
+    print(f"{label}: {why}", flush=True)
+    return why
+
+
+def lstm_library(sm, label, sets, want, dname):
+    """`torch.ops.aten._thnn_fused_lstm_cell` (PyTorch's fused LSTM cell,
+    CUDA only) as the yardstick of the LSTM gates forward, where this
+    PyTorch has it and it agrees with the plain version on `sets[0]`
+    (`want`): (the call, None), else (None, why). It reads a second gate
+    tensor (the hidden-to-hidden product, zeros here: 4/7 more bytes than
+    the kernel) and writes a [R, 4H] workspace besides h and c. Timed
+    only: the port never calls it."""
     torch = sm.torch
-    cell = getattr(torch, "_thnn_fused_lstm_cell", None)
+    name = "_thnn_fused_lstm_cell"
+    cell, why = aten_op(name)
     if cell is None:
-        return None
-    zeros = torch.zeros_like(args[0])
+        print(f"{label}: {why}", flush=True)
+        return None, why
+    zeros = torch.zeros_like(sets[0][0])
 
     def library(gates, c):
         return cell(gates, zeros, c)[:2]
     try:
-        got = library(*args)
+        got = library(*sets[0])
     except RuntimeError as e:
-        print(f"{label}: torch._thnn_fused_lstm_cell raises: "
-              f"{str(e).splitlines()[0][:100]}", flush=True)
-        return None
+        return None, raised(label, name, e)
     atol, rtol = TOL[dname]["default"]
-    ok = all(sm.within(g, w, atol, rtol) for g, w in zip(got, want))
-    return library if ok else None
+    if not all(sm.within(g, w, atol, rtol) for g, w in zip(got, want)):
+        why = f"torch.ops.aten.{name} disagrees with the plain version"
+        print(f"{label}: {why}", flush=True)
+        return None, why
+    return library, None
+
+
+def lstm_bwd_library(sm, label, sets, want, tols):
+    """`torch.ops.aten._thnn_fused_lstm_cell_backward_impl` as the
+    yardstick of the LSTM gates backward: (the call, None) where this
+    PyTorch has both fused ops and the backward's (grad_gates, grad_cx)
+    agree with the plain version's (dgates, dc) on `sets[0]` at `tols`,
+    else (None, why). Its residuals are those of PyTorch's fused forward
+    (c, c' and the activated gates as a [R, 4H] workspace), made for each
+    input set by an untimed forward; it reads one [R, H] tensor more than
+    the kernel. Timed only: the port never calls it."""
+    torch = sm.torch
+    name = "_thnn_fused_lstm_cell_backward_impl"
+    fwd, why = aten_op("_thnn_fused_lstm_cell")
+    bwd, why_b = aten_op(name)
+    if fwd is None or bwd is None:
+        why = why or why_b
+        print(f"{label}: {why}", flush=True)
+        return None, why
+    try:
+        zeros = torch.zeros_like(sets[0][0])
+        saved = {id(a[0]): fwd(a[0], zeros, a[1]) for a in sets}
+    except RuntimeError as e:
+        return None, raised(label, "_thnn_fused_lstm_cell", e)
+
+    def library(gates, c, gh, gc):
+        _, cy, workspace = saved[id(gates)]
+        return bwd(gh, gc, c, cy, workspace, False)[:2]
+    try:
+        got = library(*sets[0])
+    except RuntimeError as e:
+        return None, raised(label, name, e)
+    if not all(sm.within(g, w, *tols[n])
+               for g, w, n in zip(got, want, ("dgates", "dc"))):
+        why = f"torch.ops.aten.{name} disagrees with the plain version"
+        print(f"{label}: {why}", flush=True)
+        return None, why
+    return library, None
 
 
 def kernel_phase(sm: Smoke, results: dict) -> None:
@@ -545,13 +637,15 @@ def kernel_phase(sm: Smoke, results: dict) -> None:
             got = lstm.fused_lstm_gates(*sets[0])
             want = lstm.lstm_gates_plain(*sets[0])
             err = sm.compare(label, got, want, dname, ("h", "c"))
-            library = lstm_library(sm, label, sets[0], want, dname)
+            library, why = (lstm_library(sm, label, sets, want, dname)
+                            if H_ > 8 else (None, None))
             key = ("fused_lstm_gates" if dname == "bfloat16" and R == BATCH
                    else None)
             record(sm, results, key, f"R={R} H={H_}"
                    + (" (launch floor)" if H_ == 8 else ""), dname,
                    lstm.fused_lstm_gates, lstm.lstm_gates_plain, sets,
-                   per_set, R * H_ * 10, err, library=library)
+                   per_set, R * H_ * 10, err, library=library,
+                   library_why=why)
 
         # row 3: additive attention, greedy B = 64, S = 128 (100 live)
         B, S, A, H = BATCH, 128, 512, 1024
@@ -829,6 +923,18 @@ def attn_bytes(B, S, A, H, mask, sz) -> int:
             + 2 * B * S * 4)
 
 
+def attn_bwd_bytes(B, S, A, H, mask, sz) -> int:
+    """Bytes the attention backward must move: the live key and value
+    rows, q, w, the incoming gradients and alpha read once; dkeys, dv, dq
+    and dw written."""
+    return ((int(mask.sum()) * (A + H) + B * S * (A + H) + 2 * B * A
+             + 2 * A + B * H) * sz + 3 * B * S * 4)
+
+
+def attn_bwd_ops(A, H, mask) -> int:
+    return int(mask.sum()) * (12 * A + 4 * H)
+
+
 def bwd_inputs(torch, gen, dev, B, S, A, H, mask, dt):
     """Seeded random residuals and incoming gradients of the attention
     backward, alpha from the forward's plain version."""
@@ -893,22 +999,17 @@ def train_kernel_phase(sm: Smoke, results: dict) -> None:
             per_set = R * H * 12 * sz
             sets = [lstm_bwd_inputs(torch, gen, sm.dev, R, H, dt)
                     for _ in range(min(128, n_sets(per_set)))]
-            poison(torch, sm.dev)
-            got = lstm.fused_lstm_gates_bwd(*sets[0])
-            want = lstm.lstm_gates_bwd_plain(*sets[0])
             label = f"fused_lstm_gates_bwd {dname} R={R} H={H}"
-            tols = {n: grad_tol(dname, w)
-                    for n, w in zip(("dgates", "dc"), want)}
-            err = sm.compare(label, got, want, dname, ("dgates", "dc"), tols)
-            for n, w in zip(("dgates", "dc"), want):
-                sm.rejects(f"{label} {n} with its typical elements 5% off",
-                           perturb_typical(w), w, *tols[n])
+            err, want, tols = check_lstm_bwd(sm, label, sets[0], dname)
+            library, why = (lstm_bwd_library(sm, label, sets, want, tols)
+                            if H > 8 else (None, None))
             key = ("fused_lstm_gates_bwd" if dname == "float32"
                    and R == TRAIN_BATCH else None)
             record(sm, results, key, f"R={R} H={H}"
                    + (" (launch floor)" if H == 8 else ""), dname,
                    lstm.fused_lstm_gates_bwd, lstm.lstm_gates_bwd_plain,
-                   sets, per_set, R * H * 40, err)
+                   sets, per_set, R * H * 40, err, library=library,
+                   library_why=why)
 
         # row 4: attention backward, B = 64, a data rank's 32 and the
         # merged scan's 128, S = 104 (100 live, one fully masked image),
@@ -919,9 +1020,8 @@ def train_kernel_phase(sm: Smoke, results: dict) -> None:
             mask[:, :live] = 1.0
             mask[3] = 0.0
             n_live = int(mask.sum())
-            bytes_ = ((n_live * (A + H) + B * S * (A + H) + 2 * B * A
-                       + 2 * A + B * H) * sz + 3 * B * S * 4)
-            ops = n_live * (12 * A + 4 * H)
+            bytes_ = attn_bwd_bytes(B, S, A, H, mask, sz)
+            ops = attn_bwd_ops(A, H, mask)
             sets = [bwd_inputs(torch, gen, sm.dev, B, S, A, H, mask, dt)
                     for _ in range(n_sets(bytes_))]
             label = f"fused_additive_attention_bwd {dname} B={B} S={S}"
@@ -988,16 +1088,8 @@ def train_kernel_phase(sm: Smoke, results: dict) -> None:
         poison(torch, sm.dev)
         sm.compare(f"fused_lstm_gates {what}", lstm.fused_lstm_gates(*a),
                    lstm.lstm_gates_plain(*a), dname, ("h", "c"))
-        a = lstm_bwd_inputs(torch, gen, sm.dev, sB, sH, dt)
-        poison(torch, sm.dev)
-        got = lstm.fused_lstm_gates_bwd(*a)
-        want = lstm.lstm_gates_bwd_plain(*a)
-        tols = {n: grad_tol(dname, w) for n, w in zip(("dgates", "dc"), want)}
-        sm.compare(f"fused_lstm_gates_bwd {what}", got, want, dname,
-                   ("dgates", "dc"), tols)
-        for n, w in zip(("dgates", "dc"), want):
-            sm.rejects(f"fused_lstm_gates_bwd {what} {n} with its typical "
-                       f"elements 5% off", perturb_typical(w), w, *tols[n])
+        check_lstm_bwd(sm, f"fused_lstm_gates_bwd {what}",
+                       lstm_bwd_inputs(torch, gen, sm.dev, sB, sH, dt), dname)
 
         # rows 5 and 6: masked cross entropy, N = 64 * 21, a data rank's
         # 32 * 21 and 128 * 21, V = 8704; about 40% of the rows masked
@@ -1016,23 +1108,7 @@ def train_kernel_phase(sm: Smoke, results: dict) -> None:
             bsets = [(*a, g) for a in sets]
             label = f"fused_masked_xent {dname} N={N} V={V}"
             err_f = check_xent(sm, label, *sets[0])
-            poison(torch, sm.dev)
-            got = xent.fused_masked_xent_bwd(*bsets[0])
-            want = xent.masked_xent_bwd_plain(*bsets[0])
-            tol = grad_tol(dname, want)
-            err_b = sm.compare(label + " bwd", (got,), (want,), dname,
-                               ("dlogits",), {"dlogits": tol})
-            sm.check(bool((got[sets[0][2] == 0] == 0).all()),
-                     f"{label}: masked rows give a zero dlogits row")
-            x, tgt, m = sets[0]
-            onehot = torch.nn.functional.one_hot(tgt.long(), V).float()
-            scaled = ((1.05 * torch.softmax(x.float(), -1) - onehot)
-                      * m[:, None] * g)
-            sm.rejects(f"{label} bwd with the softmax scaled by 1.05",
-                       scaled, want, *tol)
-            sm.rejects(f"{label} bwd with its typical elements 5% off",
-                       perturb_typical(want), want, *tol)
-            del onehot, scaled
+            err_b = check_xent_bwd(sm, label, bsets[0], dname)
             kept = dname == "float32" and N == TRAIN_BATCH * STEPS
 
             def lib_fwd(x, t, m):
@@ -1101,6 +1177,49 @@ def check_xent(sm, label, x, tgt, m) -> float:
     sm.check(bool(torch.equal(got, again)),
              f"{label}: nll bit-equal across two launches")
     return err
+
+
+def check_xent_bwd(sm, label, args, dname) -> float:
+    """The masked cross entropy's backward on `args` = (logits, targets,
+    mask, g) against its plain version with the allocator poisoned first:
+    dlogits at `grad_tol(dname)` (`dname` the logits' type), masked rows
+    exactly 0, and a softmax scaled by 1.05 and the 5%-off copy rejected.
+    Returns the max abs error."""
+    torch = sm.torch
+    from cvc_tpu_torch.ops.kernels import xent
+    poison(torch, sm.dev)
+    got = xent.fused_masked_xent_bwd(*args)
+    want = xent.masked_xent_bwd_plain(*args)
+    tol = grad_tol(dname, want)
+    err = sm.compare(label + " bwd", (got,), (want,), dname, ("dlogits",),
+                     {"dlogits": tol})
+    x, tgt, m, g = args
+    sm.check(bool((got[m == 0] == 0).all()),
+             f"{label}: masked rows give a zero dlogits row")
+    onehot = torch.nn.functional.one_hot(tgt.long(), x.shape[1]).float()
+    scaled = (1.05 * torch.softmax(x.float(), -1) - onehot) * m[:, None] * g
+    sm.rejects(f"{label} bwd with the softmax scaled by 1.05", scaled, want,
+               *tol)
+    sm.rejects(f"{label} bwd with its typical elements 5% off",
+               perturb_typical(want), want, *tol)
+    return err
+
+
+def check_lstm_bwd(sm, label, args, dname) -> tuple:
+    """The LSTM gates backward on `args` against its plain version with
+    the allocator poisoned first: dgates and dc at `grad_tol`, each 5%-off
+    copy rejected. Returns (the max abs error, the plain version's
+    outputs, their tolerances)."""
+    from cvc_tpu_torch.ops.kernels import lstm
+    poison(sm.torch, sm.dev)
+    got = lstm.fused_lstm_gates_bwd(*args)
+    want = lstm.lstm_gates_bwd_plain(*args)
+    tols = {n: grad_tol(dname, w) for n, w in zip(("dgates", "dc"), want)}
+    err = sm.compare(label, got, want, dname, ("dgates", "dc"), tols)
+    for n, w in zip(("dgates", "dc"), want):
+        sm.rejects(f"{label} {n} with its typical elements 5% off",
+                   perturb_typical(w), w, *tols[n])
+    return err, want, tols
 
 
 def check_bwd_without_dv(sm, label, args) -> None:
@@ -1563,14 +1682,14 @@ def c3_config():
     return Config.from_json(path.read_text())
 
 
-def train_batch(torch, cfg, seed: int) -> dict:
-    """One seeded random batch of TRAIN_BATCH images at the config's
-    widths, made with numpy as bench.py makes its batches: 100 live region
-    slots of 104, and captions of 8 to 20 words (so the steps after a
-    caption's end are masked out of the losses)."""
+def train_batch(torch, cfg, seed: int, batch: int = TRAIN_BATCH) -> dict:
+    """One seeded random batch of `batch` images at the config's widths,
+    made with numpy as bench.py makes its batches: 100 live region slots
+    of 104, and captions of 8 to 20 words (so the steps after a caption's
+    end are masked out of the losses)."""
     import numpy as np
     rng = np.random.default_rng(seed)
-    B, S, T = TRAIN_BATCH, cfg.total_regions, cfg.max_tokens
+    B, S, T = batch, cfg.total_regions, cfg.max_tokens
     tokens = np.zeros((B, T), np.int32)
     token_mask = np.zeros((B, T), np.float32)
     tokens[:, 0] = 1                                        # BOS
@@ -2541,6 +2660,27 @@ RESUME_MAX_ABS, RESUME_ELEMENT_TOL, RESUME_SHARE = 1e-3, 1e-6, 0.01
 SERVE_AGREE = 0.98                           # (f) token agreement
 
 
+@contextlib.contextmanager
+def synth_root(prefix: str):
+    """A temporary directory whose `synth/` caches the synthetic worlds
+    (CVC_SYNTH_CACHE) while the block runs; removed, and the variable
+    restored, after it."""
+    import os
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix=prefix)
+    before = os.environ.get("CVC_SYNTH_CACHE")
+    os.environ["CVC_SYNTH_CACHE"] = os.path.join(root, "synth")
+    try:
+        yield root
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if before is None:
+            os.environ.pop("CVC_SYNTH_CACHE", None)
+        else:
+            os.environ["CVC_SYNTH_CACHE"] = before
+
+
 def loop_config(root: str, name: str, **train_kw):
     """configs/c3_flickr_cyclical.json on the synthetic world (SYNTH_IMAGES
     train images, LOOP_VAL_IMAGES val images, B 64, f32, dropout 0.5),
@@ -2611,8 +2751,6 @@ def loop_phase(sm: Smoke, smi: str, counts: dict) -> None:
     torch = sm.torch
     import dataclasses
     import os
-    import shutil
-    import tempfile
 
     from cvc_tpu_torch import eval as eval_cli
     from cvc_tpu_torch.data.datasets import load_dataset
@@ -2630,12 +2768,9 @@ def loop_phase(sm: Smoke, smi: str, counts: dict) -> None:
     from cvc_tpu_torch.training.step import make_train_step
     from cvc_tpu_torch.training.train_state import tree_items
 
-    root = tempfile.mkdtemp(prefix="cvc_loop_")
-    cache_before = os.environ.get("CVC_SYNTH_CACHE")
-    os.environ["CVC_SYNTH_CACHE"] = os.path.join(root, "synth")
     phase: dict = {}
     t_phase = time.perf_counter()
-    try:
+    with synth_root("cvc_loop_") as root:
         def run(label, fn, expect=None, nonzero=()):
             out, got = counted(sm, counts, fn)
             phase_counts(phase, got)
@@ -2921,12 +3056,6 @@ def loop_phase(sm: Smoke, smi: str, counts: dict) -> None:
                    if phase.get(name, 0) == 0]
         sm.check(not missing, f"loop: every kernel launched in the phase "
                               f"({json.dumps(phase)}; missing {missing})")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-        if cache_before is None:
-            os.environ.pop("CVC_SYNTH_CACHE", None)
-        else:
-            os.environ["CVC_SYNTH_CACHE"] = cache_before
     print(f"loop: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
@@ -3290,11 +3419,11 @@ class Collect(Smoke):
         self.checks.append((bool(ok), what))
 
 
-def host_batch(cfg, seed: int) -> dict:
+def host_batch(cfg, seed: int, batch: int = TRAIN_BATCH) -> dict:
     """`train_batch`'s arrays, in numpy."""
     import torch
     return {k: v.cpu().numpy() for k, v in
-            train_batch(torch, cfg, seed).items()}
+            train_batch(torch, cfg, seed, batch).items()}
 
 
 def synced_ms(torch, fn) -> float:
@@ -3312,13 +3441,18 @@ def spread(ms: list) -> str:
             f"{max(ms):.2f} over {len(ms)})")
 
 
-def rank_step(sm, counts, cfg, tc, params0, arrays, seed, mesh):
+def rank_step(sm, counts, cfg, tc, params0, arrays, seed, mesh,
+              timed=RANK_TIMED, drop_share=None):
     """One train step of `cfg` from `params0` on `arrays` (the whole batch;
-    with `mesh`, this rank's rows of it), then one untimed warm step and
-    RANK_TIMED timed ones: (loss, the first step's clipped gradients and
-    parameters after Adam as whole trees, the warm steps' ms, launches of
-    the first step, ms of each all-reduce of the gradients over the data
-    group alone after the timed steps (empty without one))."""
+    with `mesh`, this rank's rows of it), then, unless `timed` is 0, one
+    untimed warm step and `timed` timed ones: (loss, the first step's
+    clipped gradients and parameters after Adam as whole trees, the warm
+    steps' ms, launches of the first step, ms of each all-reduce of the
+    gradients over the data group alone after the timed steps (empty
+    without one), the first step's global gradient norm before the clip).
+    With `drop_share`, the first step carries a planted fault: the data
+    rank of that index zeroes its gradients before the data group's sum,
+    so the sum misses its share of the batch."""
     torch = sm.torch
     import copy
 
@@ -3335,7 +3469,19 @@ def rank_step(sm, counts, cfg, tc, params0, arrays, seed, mesh):
     t = to_device(arrays, DEVICE)
     step = make_train_step(cfg, tc, STEPS_PER_EPOCH, DEVICE, mesh=mesh)
     gen = torch.Generator(device=sm.dev).manual_seed(seed)
-    m, got = counted(sm, counts, lambda: step(state, t, gen))
+    if drop_share is not None and mesh.data_rank == drop_share:
+        reduce = mesh.reduce_grads
+
+        def without_share(leaves):
+            for p in leaves:
+                p.grad.zero_()
+            reduce(leaves)
+        mesh.reduce_grads = without_share
+    try:
+        m, got = counted(sm, counts, lambda: step(state, t, gen))
+    finally:
+        if mesh is not None:
+            vars(mesh).pop("reduce_grads", None)
     grads = {k: p.grad.clone() for k, p in tree_items(state.params)}
     params = state.params
     if mesh is not None and mesh.model > 1:
@@ -3344,13 +3490,24 @@ def rank_step(sm, counts, cfg, tc, params0, arrays, seed, mesh):
         grads["logit/w"], grads["logit/b"] = head["w"], head["b"]
         params = mesh.join_params(params)
     params = {k: p.detach().clone() for k, p in tree_items(params)}
-    loss = float(m["loss"])
+    loss, norm = float(m["loss"]), float(m["grad_norm"])
     ms = [synced_ms(torch, lambda: step(state, t, gen))
-          for _ in range(RANK_TIMED + 1)][1:]
+          for _ in range(timed + 1)][1:] if timed else []
     reduce_ms = ([synced_ms(torch, lambda: mesh.reduce_grads(state.leaves))
-                  for _ in range(RANK_TIMED)]
+                  for _ in range(timed)]
                  if mesh is not None and mesh.data_group is not None else [])
-    return loss, grads, params, ms, got, reduce_ms
+    return loss, grads, params, ms, got, reduce_ms, norm
+
+
+def check_rows_on_ranks(sm, tag, outs) -> None:
+    """Rows 1-6 launched on every rank whose result is in `outs`."""
+    missing = {r: [n for n, _, _ in KERNEL_ROWS[:6]
+                   if not out["counts"].get(n)]
+               for r, out in enumerate(outs)}
+    missing = {r: m for r, m in missing.items() if m}
+    sm.check(not missing, f"{tag}: rows 1-6 launched on each of the "
+                          f"{len(outs)} ranks"
+                          + (f" (missing {missing})" if missing else ""))
 
 
 def _parallel_rank(rank, world):
@@ -3390,7 +3547,7 @@ def _parallel_rank(rank, world):
         for name, mesh in meshes.items():
             label = (f"parallel rank {rank}, {name}, c3 f32 step of "
                      f"{TRAIN_BATCH}, dropout {drop}")
-            loss, grads, params, ms, got, reduce_ms = rank_step(
+            loss, grads, params, ms, got, reduce_ms, _ = rank_step(
                 sm, counts, cfg, tc, params0, arrays, 42, mesh)
             check_loss_and_grads(sm, f"{label} vs one process", loss, grads,
                                  want[0], want[1])
@@ -3553,10 +3710,7 @@ def parallel_phase(sm: Smoke, smi: str, counts: dict) -> None:
             sm.check(ok, what)
         for k, n in out["counts"].items():
             counts[k] = counts.get(k, 0) + n
-    per_rank = outs[0]["counts"]
-    missing = [n for n, _, _ in KERNEL_ROWS[:6] if not per_rank.get(n)]
-    sm.check(not missing, f"parallel: rows 1-6 launched on each rank "
-                          f"{'(missing ' + ', '.join(missing) + ')' if missing else ''}")
+    check_rows_on_ranks(sm, "parallel", outs)
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
         out = launch.spawn(_nccl_rank, 1, (root,), backend="nccl",
@@ -3664,8 +3818,6 @@ def tools_phase(sm: Smoke, smi: str, counts: dict) -> None:
     import importlib
     import importlib.util
     import os
-    import shutil
-    import tempfile
 
     from cvc_tpu_torch import eval as eval_cli
     from cvc_tpu_torch.data.datasets import load_dataset
@@ -3673,12 +3825,9 @@ def tools_phase(sm: Smoke, smi: str, counts: dict) -> None:
     from cvc_tpu_torch.data.vocab import Vocabulary
     from cvc_tpu_torch.training.loop import train
 
-    root = tempfile.mkdtemp(prefix="cvc_tools_")
-    cache_before = os.environ.get("CVC_SYNTH_CACHE")
-    os.environ["CVC_SYNTH_CACHE"] = os.path.join(root, "synth")
     phase: dict = {}
     t_phase = time.perf_counter()
-    try:
+    with synth_root("cvc_tools_") as root:
         def run(label, fn, expect):
             """fn() counted; `expect` is the launches it implies, or a
             function of its result that gives them."""
@@ -3858,12 +4007,6 @@ def tools_phase(sm: Smoke, smi: str, counts: dict) -> None:
                    if phase.get(name, 0) == 0]
         sm.check(not missing, f"tools: every kernel launched in the phase "
                               f"({json.dumps(phase)}; missing {missing})")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-        if cache_before is None:
-            os.environ.pop("CVC_SYNTH_CACHE", None)
-        else:
-            os.environ["CVC_SYNTH_CACHE"] = cache_before
     print(f"tools: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
@@ -4214,8 +4357,6 @@ def experiments_phase(sm: Smoke, smi: str, counts: dict) -> None:
     every kernel must launch in the phase."""
     import importlib
     import os
-    import shutil
-    import tempfile
 
     import cvc_tpu_torch.eval as eval_cli
     import cvc_tpu_torch.train as train_cli
@@ -4223,115 +4364,721 @@ def experiments_phase(sm: Smoke, smi: str, counts: dict) -> None:
 
     t_phase = time.perf_counter()
     experiments_kernel_phase(sm)
-    root = tempfile.mkdtemp(prefix="cvc_exp_")
-    work = os.path.join(root, "runs")
-    cache_before = os.environ.get("CVC_SYNTH_CACHE")
-    os.environ["CVC_SYNTH_CACHE"] = os.path.join(root, "synth")
-    mains = (train_cli.main, eval_cli.main)
-    calls: list = []
+    with synth_root("cvc_exp_") as root:
+        work = os.path.join(root, "runs")
+        mains = (train_cli.main, eval_cli.main)
+        calls: list = []
 
-    def recording(kind, fn):
-        def main(argv=None, device="cuda"):
-            calls.append((kind, list(argv)))
-            return fn(argv, device=device)
-        return main
+        def recording(kind, fn):
+            def main(argv=None, device="cuda"):
+                calls.append((kind, list(argv)))
+                return fn(argv, device=device)
+            return main
 
-    train_cli.main = recording("train", mains[0])
-    eval_cli.main = recording("eval", mains[1])
-    phase: dict = {}
-    try:
-        def twin(name, argv, lab_expect=None, cli=True, renamed=None):
-            module = importlib.import_module(
-                "cvc_tpu_torch.experiments." + name)
-            out = os.path.join(root, name + ".json")
-            argv = [*argv, "--out", out]
-            if name != "collect_cli_ablation":
-                argv += ["--smoke", "--device", DEVICE, "--workdir", work]
-            if cli and name != "collect_cli_ablation":
-                argv.append("--in_process")
-            del calls[:]
-            t0 = time.perf_counter()
-            ok = True
-            try:
-                _, got = counted(sm, counts, lambda: module.main(argv))
-            except SystemExit as e:      # a twin stops on a failed run
-                ok, got = False, {}
-                print(f"experiments: {name} stopped: {e}", flush=True)
-            phase_counts(phase, got)
-            want = (lab_expect if lab_expect is not None else launches(*(
-                (1, implied_train(a) if k == "train" else implied_eval(a))
-                for k, a in calls)))
-            n_cli = len(calls)
-            check_launches(sm, f"experiments: {name} ({n_cli} CLI runs, "
-                               f"{time.perf_counter() - t0:.1f} s)",
-                           [got], want)
-            written = common.load_json(out, {})
-            record = getattr(module, "RECORD", None) or module.SCHEMA
-            missing = common.record_missing(
-                written, record, renamed or getattr(module, "RENAMED", None))
-            sm.check(ok and bool(written) and not missing,
-                     f"experiments: {name}: {len(common.record_paths(written))}"
-                     f" key paths, every one of "
-                     f"{record if isinstance(record, str) else 'SCHEMA'}"
-                     f"{'; missing ' + str(missing) if missing else ''}")
-            return written
+        train_cli.main = recording("train", mains[0])
+        eval_cli.main = recording("eval", mains[1])
+        phase: dict = {}
+        try:
+            def twin(name, argv, lab_expect=None, cli=True, renamed=None):
+                module = importlib.import_module(
+                    "cvc_tpu_torch.experiments." + name)
+                out = os.path.join(root, name + ".json")
+                argv = [*argv, "--out", out]
+                if name != "collect_cli_ablation":
+                    argv += ["--smoke", "--device", DEVICE, "--workdir", work]
+                if cli and name != "collect_cli_ablation":
+                    argv.append("--in_process")
+                del calls[:]
+                t0 = time.perf_counter()
+                ok = True
+                try:
+                    _, got = counted(sm, counts, lambda: module.main(argv))
+                except SystemExit as e:      # a twin stops on a failed run
+                    ok, got = False, {}
+                    print(f"experiments: {name} stopped: {e}", flush=True)
+                phase_counts(phase, got)
+                want = (lab_expect if lab_expect is not None else launches(*(
+                    (1, implied_train(a) if k == "train" else implied_eval(a))
+                    for k, a in calls)))
+                n_cli = len(calls)
+                check_launches(sm, f"experiments: {name} ({n_cli} CLI runs, "
+                                   f"{time.perf_counter() - t0:.1f} s)",
+                               [got], want)
+                written = common.load_json(out, {})
+                record = getattr(module, "RECORD", None) or module.SCHEMA
+                missing = common.record_missing(
+                    written, record, renamed or getattr(module, "RENAMED", None))
+                sm.check(ok and bool(written) and not missing,
+                         f"experiments: {name}: {len(common.record_paths(written))}"
+                         f" key paths, every one of "
+                         f"{record if isinstance(record, str) else 'SCHEMA'}"
+                         f"{'; missing ' + str(missing) if missing else ''}")
+                return written
 
-        v3 = importlib.import_module("cvc_tpu_torch.experiments."
-                                     "cycle_ablation_v3")
-        res = twin("cycle_ablation_v3", [], implied_v3(v3), cli=False)
-        finals = [a["final"] for s in res.get("seeds", {}).values()
-                  for a in s.values()]
-        sm.check(len(finals) == 4 and all(
-            math.isfinite(f[k]) for f in finals for k in (
-                "CIDEr", "F1_loc", "attn_accuracy",
-                "vhat_dependence_argmax_probe")),
-            f"experiments: cycle_ablation_v3: {len(finals)} arms, finals "
-            f"finite")
-        twin("cycle_ablation", [], implied_lab(5, 0, 0), cli=False)
-        twin("cycle_ablation_v2", [], implied_lab(4, 1, 1), cli=False)
-        twin("cycle_ablation_long", [], implied_lab(6, 0, 1),
-             cli=False)
-        scst = twin("run_scst_demo", ["--seeds", "123"])
-        sm.check(set(scst.get("runs", {})) == {
-            "scst_base_s123", "xecont_s123", "scst_s123", "summary_s123"},
-            f"experiments: run_scst_demo: runs {sorted(scst.get('runs', {}))}")
-        twin("run_argmax_ablation", ["--tag", "cli_abl", "--arms",
-                                     "plain,boot", "--seeds", "123"])
-        logs = [os.path.join(work, f"cli_abl_{arm}_s123.log")
-                for arm in ("plain", "boot")]
-        twin("collect_cli_ablation", logs, {})
-        twin("run_argmax_continuation", [
-            "--seeds", "123", "--src",
-            f"123:{os.path.join(work, 'cli_abl_plain_s123')}"])
-        twin("run_argmax_replication", ["--seeds", "31", "--arms",
-                                        "plaincont,argmax"])
-        twin("run_scratch_cycle", ["--jobs", "11:cw01"])
-        twin("run_manufactured_amplify", ["--seeds", "43"])
-        twin("run_noisy_world", ["--seeds", "61"])
-        for name in ("run_mesh_lift", "run_mesh_convergence"):
-            res = twin(name, [])
-            sm.check(len(res.get("mesh_8dev", {}).get("val_trajectory", []))
-                     == len(res.get("single_device", {})
-                            .get("val_trajectory", [])) > 0,
-                     f"experiments: {name}: {common.SMOKE_RANKS} ranks and "
-                     f"one process validated alike, final delta "
-                     f"{res.get('final_delta')}")
-        from cvc_tpu_torch.experiments import summarize_r5
-        summarize_r5.main(["--dir", root])
-        missing = [name for name, _, _ in KERNEL_ROWS
-                   if phase.get(name, 0) == 0]
-        sm.check(not missing, f"experiments: every kernel launched in the "
-                              f"phase ({json.dumps(phase)}; missing "
-                              f"{missing})")
-    finally:
-        train_cli.main, eval_cli.main = mains
-        shutil.rmtree(root, ignore_errors=True)
-        if cache_before is None:
-            os.environ.pop("CVC_SYNTH_CACHE", None)
-        else:
-            os.environ["CVC_SYNTH_CACHE"] = cache_before
+            v3 = importlib.import_module("cvc_tpu_torch.experiments."
+                                         "cycle_ablation_v3")
+            res = twin("cycle_ablation_v3", [], implied_v3(v3), cli=False)
+            finals = [a["final"] for s in res.get("seeds", {}).values()
+                      for a in s.values()]
+            sm.check(len(finals) == 4 and all(
+                math.isfinite(f[k]) for f in finals for k in (
+                    "CIDEr", "F1_loc", "attn_accuracy",
+                    "vhat_dependence_argmax_probe")),
+                f"experiments: cycle_ablation_v3: {len(finals)} arms, finals "
+                f"finite")
+            twin("cycle_ablation", [], implied_lab(5, 0, 0), cli=False)
+            twin("cycle_ablation_v2", [], implied_lab(4, 1, 1), cli=False)
+            twin("cycle_ablation_long", [], implied_lab(6, 0, 1),
+                 cli=False)
+            scst = twin("run_scst_demo", ["--seeds", "123"])
+            sm.check(set(scst.get("runs", {})) == {
+                "scst_base_s123", "xecont_s123", "scst_s123", "summary_s123"},
+                f"experiments: run_scst_demo: runs {sorted(scst.get('runs', {}))}")
+            twin("run_argmax_ablation", ["--tag", "cli_abl", "--arms",
+                                         "plain,boot", "--seeds", "123"])
+            logs = [os.path.join(work, f"cli_abl_{arm}_s123.log")
+                    for arm in ("plain", "boot")]
+            twin("collect_cli_ablation", logs, {})
+            twin("run_argmax_continuation", [
+                "--seeds", "123", "--src",
+                f"123:{os.path.join(work, 'cli_abl_plain_s123')}"])
+            twin("run_argmax_replication", ["--seeds", "31", "--arms",
+                                            "plaincont,argmax"])
+            twin("run_scratch_cycle", ["--jobs", "11:cw01"])
+            twin("run_manufactured_amplify", ["--seeds", "43"])
+            twin("run_noisy_world", ["--seeds", "61"])
+            for name in ("run_mesh_lift", "run_mesh_convergence"):
+                res = twin(name, [])
+                sm.check(len(res.get("mesh_8dev", {}).get("val_trajectory", []))
+                         == len(res.get("single_device", {})
+                                .get("val_trajectory", [])) > 0,
+                         f"experiments: {name}: {common.SMOKE_RANKS} ranks and "
+                         f"one process validated alike, final delta "
+                         f"{res.get('final_delta')}")
+            from cvc_tpu_torch.experiments import summarize_r5
+            summarize_r5.main(["--dir", root])
+            missing = [name for name, _, _ in KERNEL_ROWS
+                       if phase.get(name, 0) == 0]
+            sm.check(not missing, f"experiments: every kernel launched in the "
+                                  f"phase ({json.dumps(phase)}; missing "
+                                  f"{missing})")
+        finally:
+            train_cli.main, eval_cli.main = mains
     print(f"experiments: phase {time.perf_counter() - t_phase:.1f} s on "
           f"{smi}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the bench twin
+# ---------------------------------------------------------------------------
+
+# the flavors of `python -m cvc_tpu_torch.bench`: the default in full (its
+# 30 s sustained window too), the others without the serving point, and
+# --pallas without training (its decode tokens against the default's)
+BENCH_FLAVORS = (("default", []),
+                 ("fp32", ["--fp32", "--no-serving"]),
+                 ("video", ["--video", "--no-serving"]),
+                 ("obj-interact", ["--obj-interact", "--no-serving"]),
+                 ("no-pallas", ["--no-pallas", "--no-serving"]),
+                 ("pallas", ["--pallas", "--no-serving", "--no-train"]))
+
+
+def bench_keys(flags: list) -> set:
+    """The keys `bench.py` prints under `flags` (bench.py:241-299), with
+    the card's three that the twin adds."""
+    video = "--video" in flags
+    keys = {"metric", "value", "unit", "mfu", "gflop_per_caption", "dtype",
+            "platform", "device_kind", "nvidia_smi"}
+    if not video:
+        keys |= {"vs_baseline", "baseline_measured_caps_per_sec",
+                 "vs_baseline_estimate_v100"}
+        if "--no-serving" not in flags:
+            keys |= {"serving_batch", "serving_caps_per_sec", "serving_mfu",
+                     "serving_sustained_caps_per_sec"}
+    if "--no-train" not in flags:
+        keys |= {"train_step_ms", "train_images_per_sec",
+                 "train_tokens_per_sec", "train_mfu"}
+        if not video:
+            keys |= {"train_serving_batch", "train_serving_images_per_sec",
+                     "train_serving_mfu"}
+    return keys
+
+
+def bench_calls(flags: list, sustained_batches: int) -> tuple:
+    """(decoder calls, train steps) of the twin under `flags`: a warm call
+    and WINDOWS windows a timed point, B 64 always; B 256 and the
+    sustained run's warm call and batches for the flickr flavor's serving
+    point; the train step at B 64, and at B 256 for the flickr flavor."""
+    video = "--video" in flags
+    decode, step = (1 + benchlib.WINDOWS * n
+                    for n in (benchlib.DECODE_ITERS, benchlib.TRAIN_ITERS))
+    decodes = decode
+    if not video and "--no-serving" not in flags:
+        decodes += decode + 1 + sustained_batches
+    steps = 0 if "--no-train" in flags else step * (1 if video else 2)
+    return decodes, steps
+
+
+def bench_phase(sm: Smoke, smi: str, counts: dict) -> None:
+    """Phase 16: `python -m cvc_tpu_torch.bench` through its main(argv) on
+    the card, in each of BENCH_FLAVORS: its JSON line holds the keys
+    `bench.py` prints under the same flags and the card's name and power
+    limit, every number above 0; the launch counters, read around each
+    flavor, equal what its decoder calls and train steps imply (the beam
+    core and the top-k a beam step, ARGMAX_LAUNCHES a train step; under
+    --no-pallas the top-k alone, whose knob stays on auto as bench.py's
+    does); --pallas decodes the default's tokens. Every kernel must
+    launch in the phase. First the kernel rows at the flavors' shapes that
+    no earlier phase holds (`bench_sites`: the B 256 points among them)
+    against their plain versions."""
+    torch = sm.torch
+    t_phase = time.perf_counter()
+    for s in bench_sites():
+        hold_rows(sm, s)
+    print(f"bench: the kernel rows at the flavors' shapes "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    import cvc_tpu_torch.bench as bench_twin
+    from cvc_tpu_torch.models import decoding
+
+    make_decoder = decoding.make_decoder
+    sustained = benchlib.bench_serving_sustained
+    seen: dict = {}
+
+    def recording_make_decoder(*a, **kw):
+        decode = make_decoder(*a, **kw)
+
+        def wrapped(params, arrays, *rest):
+            out = decode(params, arrays, *rest)
+            if seen["tokens"] is None:
+                seen["tokens"] = out["tokens"].clone()
+            return out
+        return wrapped
+
+    def recording_sustained(*a, **kw):
+        out = sustained(*a, **kw)
+        seen["batches"] += out["batches"]
+        return out
+
+    decoding.make_decoder = recording_make_decoder
+    benchlib.bench_serving_sustained = recording_sustained
+    tokens, phase = {}, {}
+    try:
+        for name, flags in BENCH_FLAVORS:
+            seen.update(tokens=None, batches=0)
+            t0 = time.perf_counter()
+            out, got = counted(sm, counts, lambda: bench_twin.main(
+                flags, device=DEVICE))
+            phase_counts(phase, got)
+            tokens[name] = seen["tokens"]
+            decodes, steps = bench_calls(flags, seen["batches"])
+            plain = "--no-pallas" in flags
+            check_launches(sm, f"bench: {name} ({decodes} beam-5 decodes, "
+                               f"{steps} train steps, "
+                               f"{time.perf_counter() - t0:.1f} s)", [got],
+                           launches((decodes, SELECT_CALL if plain
+                                     else BEAM_CALL),
+                                    (steps, {} if plain
+                                     else ARGMAX_LAUNCHES)))
+            want = bench_keys(flags)
+            numbers = {k: v for k, v in out.items()
+                       if isinstance(v, (int, float))}
+            bad = sorted(k for k, v in numbers.items()
+                         if not (math.isfinite(v) and v > 0))
+            sm.check(set(out) == want and not bad
+                     and out["platform"] == "gpu"
+                     and out["nvidia_smi"] == smi,
+                     f"bench: {name}: the {len(want)} keys of bench.py "
+                     f"{' '.join(flags)} and the card's, {len(numbers)} "
+                     f"numbers above 0, on {out.get('nvidia_smi')}"
+                     + (f"; missing {sorted(want - set(out))}, extra "
+                        f"{sorted(set(out) - want)}, not above 0 {bad}"
+                        if set(out) != want or bad else ""))
+        same = (tokens["pallas"] is not None
+                and bool(torch.equal(tokens["pallas"], tokens["default"])))
+        sm.check(same, f"bench: --pallas decodes the default's tokens (the "
+                       f"first B {BATCH} beam-5 batch, "
+                       f"{tuple(tokens['default'].shape)})")
+        missing = [n for n, _, _ in KERNEL_ROWS if phase.get(n, 0) == 0]
+        sm.check(not missing, f"bench: every kernel launched in the phase "
+                              f"({json.dumps(phase)}; missing {missing})")
+    finally:
+        decoding.make_decoder = make_decoder
+        benchlib.bench_serving_sustained = sustained
+    print(f"bench: phase {time.perf_counter() - t_phase:.1f} s on {smi}",
+          flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the shipped presets through the CLIs
+# ---------------------------------------------------------------------------
+
+# (train images, val images) of each preset's synthetic world: phase 10's
+# for c1 and c2; c4's 10 frames hold ten times a c3 image's features, so
+# its world is 64 + 32 images (two steps of its B 32); c5's 1024 images
+# (~1 GB of features) make two steps of its B 512
+PRESETS = {"c1_flickr_greedy_small": (SYNTH_IMAGES, LOOP_VAL_IMAGES),
+           "c2_flickr_xe_nocycle": (SYNTH_IMAGES, LOOP_VAL_IMAGES),
+           "c4_anet_video": (64, 32),
+           "c5_v5e8_bf16_large": (1024, 128)}
+C5 = "c5_v5e8_bf16_large"
+C5_TIMED = 2                                 # warm steps timed a rank
+
+
+def preset_config(name: str):
+    """configs/<name>.json as the train CLI reads it."""
+    from cvc_tpu_torch.config import Config
+    return Config.from_json(repo_path(f"configs/{name}.json").read_text())
+
+
+def preset_argv(name: str, root: str) -> list:
+    """One epoch of the train CLI on the preset, on its synthetic world,
+    checkpoints under root/name."""
+    import os
+    images, val = PRESETS[name]
+    return ["--config_json", str(repo_path(f"configs/{name}.json")),
+            "--dataset", "synthetic", "--synthetic_num_images", str(images),
+            "--synthetic_num_val_images", str(val), "--max_epochs", "1",
+            "--checkpoint_path", os.path.join(root, name)]
+
+
+def preset_eval_argv(name: str, root: str) -> list:
+    """The eval CLI on the preset's checkpoint with the preset's own eval
+    (greedy for c1, beam 5 for the others) and batch, on the val split of
+    its world."""
+    import os
+    return ["--config_json", str(repo_path(f"configs/{name}.json")),
+            "--start_from", os.path.join(root, name), "--split", "val",
+            "--out_dir", os.path.join(root, name + "_eval")]
+
+
+def path_mask(torch, gen, dev, B, S):
+    """[B, S] float32 mask of a path's slots: all live but S // 26 (100 of
+    104, 39 of 40, 1000 of 1040), at scattered places, and image 3 fully
+    masked."""
+    return scattered_mask(torch, gen, dev, B, S, S - S // 26, (3,))
+
+
+def site(tag, dname, H, A, S, V, lstm=(), attn=(), xent=(), core=(),
+         topk=()) -> dict:
+    """The shapes a path gives the kernel rows at one model's widths (H, A,
+    S slots, V words) and type `dname`: R of rows 1 and 2 (`lstm`), B of
+    rows 3 and 4 (`attn`), N of rows 5 and 6 (`xent`, float32 logits as
+    the step feeds them), (B, K) of row 7 (`core`) and (N, k) of row 8
+    (`topk`, float32 logits)."""
+    return dict(tag=tag, dname=dname, H=H, A=A, S=S, V=V,
+                lstm=sorted(set(lstm)), attn=sorted(set(attn)),
+                xent=sorted(set(xent)), core=sorted(set(core)),
+                topk=sorted(set(topk)))
+
+
+def hold_rows(sm, s: dict, timed: bool = False) -> None:
+    """Every kernel row of the site `s` against its plain version at the
+    site's shapes, with the allocator poisoned first and the checks of
+    phase 2: rows 1 and 3 at TOL, rows 2, 4 and 6 at `grad_tol` with their
+    5%-off copies rejected, row 4 also without dv, fully masked images and
+    masked rows exactly 0, rows 3-5, 7 and 8 bit-equal across two launches,
+    row 8's indices and values exact. With `timed`, each row is also timed
+    against its plain version and its bound (a `kernel` line)."""
+    torch = sm.torch
+    from cvc_tpu_torch.ops.kernels import attention, decoder_step, lstm
+
+    gen = torch.Generator(device=sm.dev).manual_seed(23)
+    dname, H, A, S, V = s["dname"], s["H"], s["A"], s["S"], s["V"]
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dname]
+    sz, live, at = dt.itemsize, S - S // 26, f"({s['tag']})"
+
+    def inputs(make, per_set):
+        return [make() for _ in range(min(128, n_sets(per_set))
+                                      if timed else 1)]
+
+    def timing(case, *rest):
+        if timed:
+            record(sm, {}, None, f"{case} {at}", *rest)
+
+    for R in s["lstm"]:
+        per_set = R * H * 7 * sz
+        sets = inputs(lambda: lstm_inputs(torch, gen, sm.dev, R, H, dt),
+                      per_set)
+        poison(torch, sm.dev)
+        err = sm.compare(f"fused_lstm_gates {dname} R={R} H={H} {at}",
+                         lstm.fused_lstm_gates(*sets[0]),
+                         lstm.lstm_gates_plain(*sets[0]), dname, ("h", "c"))
+        timing(f"R={R} H={H}", dname, lstm.fused_lstm_gates,
+               lstm.lstm_gates_plain, sets, per_set, R * H * 10, err)
+        per_set = R * H * 12 * sz
+        sets = inputs(lambda: lstm_bwd_inputs(torch, gen, sm.dev, R, H, dt),
+                      per_set)
+        err = check_lstm_bwd(sm, f"fused_lstm_gates_bwd {dname} R={R} H={H} "
+                                 f"{at}", sets[0], dname)[0]
+        timing(f"R={R} H={H}", dname, lstm.fused_lstm_gates_bwd,
+               lstm.lstm_gates_bwd_plain, sets, per_set, R * H * 40, err)
+
+    for B in s["attn"]:
+        mask = path_mask(torch, gen, sm.dev, B, S)
+        bytes_ = attn_bwd_bytes(B, S, A, H, mask, sz)
+        sets = inputs(lambda: bwd_inputs(torch, gen, sm.dev, B, S, A, H,
+                                         mask, dt), bytes_)
+        what = f"{dname} B={B} S={S} A={A} H={H} {at}"
+        err = check_bwd(sm, f"fused_additive_attention_bwd {what}", sets[0],
+                        dname)
+        timing(f"B={B} S={S} A={A} H={H}", dname,
+               attention.fused_additive_attention_bwd,
+               attention.additive_attention_bwd_plain, sets, bytes_,
+               attn_bwd_ops(A, H, mask), err)
+        check_bwd_without_dv(sm, f"fused_additive_attention_bwd {what}",
+                             sets[0])
+        fsets = [a[:5] for a in sets]
+        err = check_fwd(sm, f"fused_additive_attention {what}", fsets[0],
+                        dname, live)
+        timing(f"B={B} S={S} A={A} H={H}", dname,
+               attention.fused_additive_attention,
+               attention.additive_attention_plain, fsets,
+               attn_bytes(B, S, A, H, mask, sz),
+               int(mask.sum()) * (3 * A + 2 * H), err)
+
+    for N in s["xent"]:
+        x, tgt, m = xent_inputs(torch, gen, sm.dev, N, V, torch.float32)
+        label = f"fused_masked_xent float32 N={N} V={V} {at}"
+        check_xent(sm, label, x, tgt, m)
+        check_xent_bwd(sm, label, (x, tgt, m, torch.tensor(
+            [0.37], device=sm.dev)), "float32")
+        del x
+
+    for B, K in s["core"]:
+        mask = path_mask(torch, gen, sm.dev, B, S)
+        bytes_ = core_bytes(B, K, S, A, H, mask, sz)
+        sets = inputs(lambda: core_inputs(torch, gen, sm.dev, B, K, S, A, H,
+                                          mask, dt), bytes_)
+        err = check_core(sm, f"fused_beam_decoder_core {dname} B={B} K={K} "
+                             f"S={S} A={A} H={H} {at}", sets[0], dname, live)
+        timing(f"B={B} K={K} S={S} A={A} H={H}", dname,
+               decoder_step.fused_beam_decoder_core,
+               decoder_step.beam_core_oracle, sets, bytes_,
+               core_ops(B, K, A, H, mask), err)
+
+    for N, k in s["topk"]:
+        x, _ = topk_inputs(torch, gen, sm.dev, N, V, k, torch.float32)
+        check_topk(sm, f"fused_topk_lse float32 N={N} k={k} V={V} {at}", x,
+                   k, pad=4)
+
+
+def preset_sites(name: str, V: int) -> list:
+    """The kernel rows' shapes on preset `name`'s paths in this phase, V
+    its world's padded vocabulary: the train step (a data rank's rows;
+    the GT-query scan's 2B where the first epoch's stage merges it), the
+    train CLI's greedy validation (a data rank's rows), the eval CLI's
+    greedy or beam decode (one process, the preset's B and beam; the beam
+    step's language cell is the plain one, as in the JAX package). For
+    c5 also the grid check's steps at V 8704: a data rank's B 128 and one
+    process's 512, in bf16 and float32."""
+    from cvc_tpu_torch.training.loop import cycle_stage
+    c = preset_config(name)
+    m, t, e = c.model, c.train, c.eval
+    B, L, K = c.data.batch_size, m.seq_length + 1, e.beam_size
+    ranks = t.num_devices // t.model_axis if t.num_devices > 1 else 1
+    rb = B // ranks
+    rows = [rb, 2 * rb] if cycle_stage(t, m, 0)[1] else [rb]
+    beam = e.sample_method != "greedy" and K > 1
+    widths = (m.rnn_size, m.att_hid_size, m.total_regions)
+    greedy = [] if beam else [B]
+    sites = [site(name, m.dtype, *widths, V, lstm=rows + greedy,
+                  attn=rows + greedy, xent=[rb * L],
+                  core=[(B, K)] if beam else [],
+                  topk=[(rb, 1), (B * K, K) if beam else (B, 1)])]
+    if t.num_devices > 1:
+        grid = dict(lstm=[rb, B], attn=[rb, B])
+        sites += [site(f"{name} grid check", m.dtype, *widths, 8704,
+                       xent=[rb * L, B * L], **grid),
+                  site(f"{name} grid check", "float32", *widths, 8704,
+                       **grid)]
+    return sites
+
+
+def bench_sites() -> list:
+    """The kernel rows' shapes in the bench twin's flavors that no other
+    phase holds: the default's B 256 points (beam-5 decode, the train
+    step) and the train step at B 64 on the flagship's 128 slots, in bf16;
+    --fp32's and --obj-interact's train steps (their kernels on float32
+    inputs) at B 64 and 256; --video's train step at S 1280."""
+    f, v = benchlib.flagship_config(), benchlib.video_config()
+    widths = (f.rnn_size, f.att_hid_size, f.total_regions, f.vocab_size)
+    B, K, big = BATCH, BEAM, 4 * BATCH
+    return [site("bench, bf16", "bfloat16", *widths, lstm=[big],
+                 attn=[B, big], xent=[big * STEPS], core=[(big, K)],
+                 topk=[(big * K, K)]),
+            site("bench --fp32, --obj-interact", "float32", *widths,
+                 lstm=[big], attn=[B, big]),
+            site("bench --video", "bfloat16", v.rnn_size, v.att_hid_size,
+                 v.total_regions, v.vocab_size, attn=[B])]
+
+
+def _c5_rank(rank, world):
+    """One of c5's ranks (4 data x 2 model) sharing the card over gloo:
+    c5's first step at its widths, dropout off, over the rank grid on 512
+    seeded images (V 8704), in float32 and in the preset's bf16, its
+    launches those of the first epoch's stage on every rank; in bf16 also
+    the step with a planted fault, data rank 3's share missing from the
+    gradients' sum. Rank 0 also runs the step in one process on the same
+    images and holds the grid's against it: float32 at phase 13's checks
+    (loss within 1e-5 relative, gradients at `grad_tol`, parameters after
+    Adam), bf16 by `check_bf16_grid`. Returns the checks, the launch
+    counts and printed lines."""
+    import dataclasses
+
+    import torch
+
+    from cvc_tpu_torch.models import core
+    from cvc_tpu_torch.parallel.mesh import make_mesh
+    from cvc_tpu_torch.training.loop import cycle_stage
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sm = Collect(torch)
+    counts, lines = {}, []
+    c5 = preset_config(C5)
+    tc, B = c5.train, c5.data.batch_size
+    arrays = host_batch(c5.model, seed=51, batch=B)
+    mesh = make_mesh(world, tc.model_axis, sm.dev)
+    expect = train_unit(cycle_stage(tc, c5.model, 0),
+                        c5.model.seq_length + 1)
+    ref32 = None
+    for dname in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(c5.model, dtype=dname, drop_prob_lm=0.0)
+        params0 = core.init_params(torch.Generator().manual_seed(0), cfg,
+                                   DEVICE)
+        label = (f"c5 rank {rank}, {mesh.data} data x {mesh.model} model "
+                 f"ranks, {dname} step of {B}, H {cfg.rnn_size}")
+        loss, grads, params, ms, got, reduce_ms, norm = rank_step(
+            sm, counts, cfg, tc, params0, arrays, 52, mesh, timed=C5_TIMED)
+        check_launches(sm, f"{label}: the first step", [got], expect)
+        lines.append(f"{label}: warm step {spread(ms)}; the gradient "
+                     f"all-reduce alone {spread(reduce_ms)}; launches {got}")
+        fault = None
+        if dname == "bfloat16":
+            fault = rank_step(sm, {}, cfg, tc, params0, arrays, 52, mesh,
+                              timed=0, drop_share=mesh.data - 1)
+        if rank == 0:
+            want = rank_step(sm, {}, cfg, tc, params0, arrays, 52, None,
+                             timed=C5_TIMED)
+            check_launches(sm, f"c5 one process, {dname} step of {B}: the "
+                               f"first step", [want[4]], expect)
+            lines.append(f"c5 one process, {dname} step of {B}: warm step "
+                         f"{spread(want[3])} while the other ranks wait")
+            if dname == "float32":
+                check_loss_and_grads(sm, f"{label} vs one process", loss,
+                                     grads, want[0], want[1])
+                adam_step_close(sm, f"{label} vs one process", params,
+                                want[2], grads, want[1],
+                                (tc.learning_rate, tc.adam_eps))
+                ref32 = want[1]
+            else:
+                check_bf16_grid(sm, label, (loss, norm, grads),
+                                (fault[0], fault[6], fault[1]),
+                                (want[0], want[6], want[1]), ref32, lines)
+            del want
+        del params0, grads, params, fault
+    return {"checks": sm.checks, "counts": counts, "lines": lines}
+
+
+# a bf16 step over the rank grid against one process's: the loss within
+# half a bf16 step (2^-8), where the two runs' products (cuBLAS picks by
+# shape) may round differently before the loss's float32 sums; the global
+# gradient norm before the clip within BF16_NORM_RTOL, where a data rank's
+# missing share moves it by ~1/4; each clipped gradient's relative L2
+# distance from float32 within BF16_FACTOR times the one process's, where
+# the grid rounds each of 4 data ranks' partial weight gradients and one
+# process rounds one sum, up to sqrt(4 + 1) ~ 2.2 times the rounding noise
+BF16_LOSS_RTOL, BF16_NORM_RTOL, BF16_FACTOR, BF16_FLOOR = 2e-3, 1e-2, 3.0, 1e-3
+
+
+def rel_l2(grads, ref) -> dict:
+    """{name: |g - ref| / |ref|} over the parameters `ref` has a nonzero
+    gradient for (inf where `grads` lacks one or holds a non-finite
+    value)."""
+    out = {}
+    for k, r in ref.items():
+        if r is None or float(r.norm()) == 0:
+            continue
+        g = grads.get(k)
+        g = None if g is None else g.to(r.device, r.dtype)
+        out[k] = (math.inf if g is None or not bool(g.isfinite().all())
+                  else float((g - r).norm() / r.norm()))
+    return out
+
+
+def bf16_verdict(got, want, ref32) -> dict:
+    """A bf16 step's (loss, norm before the clip, clipped gradients) `got`
+    against the one process's bf16 step `want`, on the same batch: the
+    relative error of the loss and of the norm, each gradient's relative
+    L2 distance from the one process's float32 gradient `ref32` as a share
+    of its bound (BF16_FACTOR times the one process's bf16 distance +
+    BF16_FLOOR), and whether all three are within their limits."""
+    loss_err = abs(got[0] - want[0]) / abs(want[0])
+    norm_err = abs(got[1] - want[1]) / abs(want[1])
+    grid, one = rel_l2(got[2], ref32), rel_l2(want[2], ref32)
+    share = {k: grid[k] / (BF16_FACTOR * one[k] + BF16_FLOOR) for k in one}
+    worst = max(share, key=share.get)
+    return dict(loss_err=loss_err, norm_err=norm_err, grid=grid, one=one,
+                share=share, worst=worst,
+                over=sorted(k for k in share if not share[k] <= 1),
+                ok=(loss_err <= BF16_LOSS_RTOL and norm_err <= BF16_NORM_RTOL
+                    and all(share[k] <= 1 for k in share)))
+
+
+def check_bf16_grid(sm, label, got, fault, want, ref32, lines) -> None:
+    """A bf16 step over ranks, `got` = (loss, global gradient norm before
+    the clip, clipped gradients), against the one process's bf16 step
+    `want` on the same batch (`bf16_verdict`). A bf16 step's own gradients
+    sit up to ~7% (relative L2) from float32's at c5's widths, and near-zero
+    elements differ by more than their size, so neither `grad_tol`'s
+    elementwise test nor its 5%-off control can separate two bf16 runs;
+    phase 13's elementwise tolerances hold the same grid in float32. The
+    control is the grid's step with a planted fault, `fault`: data rank 3
+    zeroed its gradients before the data group's sum. It must fail; both
+    readings are printed. The loss 5% off must fail too."""
+    v, bad = bf16_verdict(got, want, ref32), bf16_verdict(fault, want, ref32)
+    k = v["worst"]
+    lines.append(f"{label}: gradients' relative L2 distance from the one "
+                 f"process's float32 ones, grid / one process bf16: "
+                 + ", ".join(f"{n} {v['grid'][n]:.4f}/{v['one'][n]:.4f}"
+                             for n in v["one"]))
+    sm.check(v["ok"], f"{label} vs one process: loss rel err "
+                      f"{v['loss_err']:.2e} (want <= {BF16_LOSS_RTOL:g}), "
+                      f"norm before the clip {got[1]:.6g} vs {want[1]:.6g}, "
+                      f"rel err {v['norm_err']:.2e} (want <= "
+                      f"{BF16_NORM_RTOL:g}), every gradient within "
+                      f"{BF16_FACTOR:g} times the one process's distance "
+                      f"from float32 + {BF16_FLOOR:g} (worst {k}: "
+                      f"{v['grid'][k]:.4f} vs {v['one'][k]:.4f}, "
+                      f"{v['share'][k]:.3f} of its bound)"
+                      + (f"; over: {v['over']}" if v["over"] else ""))
+    sm.check(abs(1.05 * got[0] - want[0]) / abs(want[0]) > BF16_LOSS_RTOL,
+             f"{label}: the loss 5% off rejected")
+    lines.append(f"{label}: the same with the planted fault, grid / one "
+                 f"process bf16: "
+                 + ", ".join(f"{n} {bad['grid'][n]:.4f}/{bad['one'][n]:.4f}"
+                             for n in bad["one"]))
+    k, least = bad["worst"], min(bad["share"], key=bad["share"].get)
+    sm.check(not bad["ok"],
+             f"{label}: the planted fault (data rank 3's share missing "
+             f"from the sum) fails: norm before the clip {fault[1]:.6g}, "
+             f"rel err {bad['norm_err']:.2e}; {len(bad['over'])} of "
+             f"{len(bad['share'])} gradients over their bound (least "
+             f"{least} at {bad['share'][least]:.3f} of its bound, worst {k} "
+             f"at {bad['share'][k]:.3f}; the sound step's worst "
+             f"{v['share'][v['worst']]:.3f})")
+
+
+def presets_phase(sm: Smoke, smi: str, counts: dict) -> None:
+    """Phase 17: the shipped presets c1, c2, c4 and c5 (configs/*.json) on
+    the card. First c5's first step over its 8 ranks against one process
+    (`_c5_rank`, every rank's launches checked). Then for each preset, on
+    its synthetic world (PRESETS; built once, before the run, into a cache
+    the ranks read): every kernel row its paths run held against its plain
+    version at the preset's own widths, type, batch and beam
+    (`preset_sites`; c5's timed), then one epoch of `python -m
+    cvc_tpu_torch.train --config_json configs/<preset>.json --dataset
+    synthetic` and `python -m cvc_tpu_torch.eval` on its checkpoint with
+    the preset's own eval, both through their main(argv) in this process
+    (c5's train CLI starts its 8 ranks itself, over gloo on the one card):
+    the run ends with a finite loss and a checkpoint of epoch 1 that the
+    eval CLI reloads, its metrics finite, and the launch counters read
+    around each equal what its argv implies (`implied_train`,
+    `implied_eval`). c5's train CLI launches in its ranks' processes,
+    whose counters this process cannot read: nothing may launch here, and
+    the ranks' steps are those the grid check held. Every kernel must
+    launch in the phase."""
+    import os
+
+    import cvc_tpu_torch.eval as eval_cli
+    import cvc_tpu_torch.train as train_cli
+    from cvc_tpu_torch.config import config_from_args
+    from cvc_tpu_torch.data.datasets import load_dataset
+    from cvc_tpu_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    phase: dict = {}
+    c5 = preset_config(C5).train
+    outs = launch.spawn(_c5_rank, c5.num_devices, (), backend="gloo",
+                        timeout=PARALLEL_TIMEOUT)
+    print(f"presets: c5's first step over {c5.num_devices} ranks over gloo "
+          f"on one card, {time.perf_counter() - t_phase:.1f} s on {smi}",
+          flush=True)
+    for out in outs:
+        for line in out["lines"]:
+            print("presets: " + line, flush=True)
+        for ok, what in out["checks"]:
+            sm.check(ok, what)
+        for k, n in out["counts"].items():
+            counts[k] = counts.get(k, 0) + n
+    check_rows_on_ranks(sm, "presets: c5", outs)
+
+    with synth_root("cvc_presets_") as root:
+        for name in PRESETS:
+            argv = preset_argv(name, root)
+            cfg = config_from_args(argv)
+            t0 = time.perf_counter()
+            worlds = [load_dataset(cfg.data, cfg.model, split)
+                      for split in ("train", "val")]
+            t_world = time.perf_counter() - t0
+            V = worlds[0].vocab.padded_size(128)
+            del worlds
+            t0 = time.perf_counter()
+            for s in preset_sites(name, V):
+                hold_rows(sm, s, timed=name == C5)
+            print(f"presets: {name}: the kernel rows at its widths "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            print(f"presets: python -m cvc_tpu_torch.train "
+                  f"{' '.join(argv)}", flush=True)
+            t0 = time.perf_counter()
+            infos, got = counted(sm, counts, lambda: train_cli.main(
+                argv, device=DEVICE))
+            phase_counts(phase, got)
+            t_train = time.perf_counter() - t0
+            ranks = cfg.train.num_devices or 1
+            label = (f"presets: {name} (H {cfg.model.rnn_size}, S "
+                     f"{cfg.model.total_regions}, B {cfg.data.batch_size}, "
+                     f"{cfg.model.dtype}, {ranks} rank(s))")
+            check_launches(sm, f"{label} train CLI, 1 epoch ({t_train:.1f} "
+                               f"s; world {t_world:.1f} s)"
+                               + (f", none in this process (its {ranks} "
+                                  f"ranks' are not read)" if ranks > 1
+                                  else ""), [got], implied_train(argv))
+            ckpt = cfg.train.checkpoint_path
+            rows = [r for r in log_rows(os.path.join(ckpt, "logs"),
+                                        "speed/") if "speed/loss_mean" in r]
+            loss = rows[-1]["speed/loss_mean"] if rows else math.nan
+            sm.check(infos.get("epoch") == 1 and math.isfinite(loss)
+                     and saved_epoch(ckpt) == 1,
+                     f"{label}: epoch {infos.get('epoch')}, mean loss "
+                     f"{loss:.4f}, a checkpoint of epoch "
+                     f"{saved_epoch(ckpt) if os.path.isdir(ckpt) else None}")
+            eargv = preset_eval_argv(name, root)
+            print(f"presets: python -m cvc_tpu_torch.eval "
+                  f"{' '.join(eargv)}", flush=True)
+            t0 = time.perf_counter()
+            res, got = counted(sm, counts, lambda: eval_cli.main(
+                eargv, device=DEVICE))
+            phase_counts(phase, got)
+            e = preset_config(name).eval
+            how = ("greedy" if e.sample_method == "greedy"
+                   else f"beam {e.beam_size}")
+            check_launches(sm, f"{label} eval CLI, {how} "
+                               f"({time.perf_counter() - t0:.1f} s)", [got],
+                           implied_eval(eargv))
+            scores = {k: v for k, v in res.items()
+                      if isinstance(v, (int, float))}
+            sm.check("CIDEr" in scores and all(math.isfinite(v)
+                                               for v in scores.values()),
+                     f"{label}: the eval CLI reloaded the checkpoint, "
+                     f"{len(scores)} metrics finite (CIDEr "
+                     f"{scores.get('CIDEr')})")
+        missing = [n for n, _, _ in KERNEL_ROWS if phase.get(n, 0) == 0]
+        sm.check(not missing, f"presets: every kernel launched in the phase "
+                              f"({json.dumps(phase)}; missing {missing})")
+    print(f"presets: phase {time.perf_counter() - t_phase:.1f} s on {smi}",
+          flush=True)
 
 
 KERNEL_ROWS = [
@@ -4396,24 +5143,32 @@ def main(argv: list[str]) -> int:
         print(json.dumps({"serving_rates": rates}), flush=True)
         return 0
 
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+        return out
+
     results: dict = {}
-    kernel_phase(sm, results)
-    train_kernel_phase(sm, results)
-    bf16_head_phase(sm)
-    reject_phase(sm)
     counts: dict = {}
-    serving_phase(sm, smi, counts)
-    train_phase(sm, smi, counts)
-    c3, ds, xe_params = data_phase(sm, smi, counts)
-    ss_phase(sm, smi, counts, c3, ds)
-    scst_phase(sm, smi, counts, c3, ds, xe_params)
-    obj_interact_phase(sm, smi, counts, c3)
-    loop_phase(sm, smi, counts)
-    pth_phase(sm, smi, counts)
-    native_phase(sm, smi, counts, c3, ds, xe_params)
-    parallel_phase(sm, smi, counts)
-    tools_phase(sm, smi, counts)
-    experiments_phase(sm, smi, counts)
+    timed("kernels", kernel_phase, sm, results)
+    timed("train kernels", train_kernel_phase, sm, results)
+    timed("bf16 head", bf16_head_phase, sm)
+    timed("refusals", reject_phase, sm)
+    timed("serving", serving_phase, sm, smi, counts)
+    timed("train", train_phase, sm, smi, counts)
+    c3, ds, xe_params = timed("data", data_phase, sm, smi, counts)
+    timed("scheduled sampling", ss_phase, sm, smi, counts, c3, ds)
+    timed("scst", scst_phase, sm, smi, counts, c3, ds, xe_params)
+    timed("obj_interact", obj_interact_phase, sm, smi, counts, c3)
+    timed("loop", loop_phase, sm, smi, counts)
+    timed("pth", pth_phase, sm, smi, counts)
+    timed("native", native_phase, sm, smi, counts, c3, ds, xe_params)
+    timed("parallel", parallel_phase, sm, smi, counts)
+    timed("tools", tools_phase, sm, smi, counts)
+    timed("experiments", experiments_phase, sm, smi, counts)
+    timed("bench", bench_phase, sm, smi, counts)
+    timed("presets", presets_phase, sm, smi, counts)
 
     kernels = []
     for name, source, replaces in KERNEL_ROWS:

@@ -42,6 +42,8 @@ BATCH = 64
 BEAM = 5
 SEQ = 20
 WINDOWS = 3                                  # timed windows; the best is kept
+DECODE_ITERS = 10                            # decodes a window (bench.py's)
+TRAIN_ITERS = 20                             # train steps a window (bench.py's)
 
 HBM_BYTES_PER_S = 3.35e12                    # H100 SXM
 PEAK_OPS = {"bfloat16": 989e12,              # dense bf16 tensor cores
@@ -214,7 +216,7 @@ def decoder_params(cfg, params):
 
 
 def bench_decode(cfg, params, batch: int = BATCH, device="cuda",
-                 iters: int = 10) -> dict:
+                 iters: int = DECODE_ITERS) -> dict:
     """Beam-5 captions/s on a resident batch: the best of WINDOWS windows
     of `iters` decodes queued back to back (a serving pipeline submits
     without waiting), each window ended by one wait for the card.
@@ -301,7 +303,7 @@ def bench_serving_sustained(cfg, params, batch: int = 256,
 
 
 def bench_train(cfg, params, batch: int | None = None, device="cuda",
-                iters: int = 20) -> dict:
+                iters: int = TRAIN_ITERS) -> dict:
     """The cyclical train step (Adam at 5e-4, clip 0.1, dropout drawn from
     a seeded generator) on one repeated batch: the best of WINDOWS windows
     of `iters` steps. `params` (float32) become the state's and are
@@ -317,14 +319,20 @@ def bench_train(cfg, params, batch: int | None = None, device="cuda",
     gen = torch.Generator(device=device).manual_seed(0)
     times = time_windows(lambda: step(state, arrays, gen), device, iters,
                          label=f"train step B={batch} {cfg.dtype}")
-    best = min(times)
+    return dict(train_rates(cfg, batch, min(times)),
+                window_step_ms=[t * 1e3 for t in times])
+
+
+def train_rates(cfg, batch: int, seconds: float) -> dict:
+    """A train step of `batch` images in `seconds` as `bench.bench_train`
+    reports it: ms a step, images/s, tokens/s (seq_length + 1 a caption)
+    and MFU against the card's peak for the model's type."""
     toks = float(batch * (cfg.seq_length + 1))
-    return {"train_step_ms": best * 1e3,
-            "train_images_per_sec": batch / best,
-            "train_tokens_per_sec": toks / best,
-            "train_mfu": batch * train_image_flops(cfg) / best
-            / PEAK_OPS[cfg.dtype],
-            "window_step_ms": [t * 1e3 for t in times]}
+    return {"train_step_ms": seconds * 1e3,
+            "train_images_per_sec": batch / seconds,
+            "train_tokens_per_sec": toks / seconds,
+            "train_mfu": batch * train_image_flops(cfg) / seconds
+            / PEAK_OPS[cfg.dtype]}
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,7 @@ for new in ("cvc_tpu_torch.models.torch_import", "cvc_tpu_torch.native",
             "cvc_tpu_torch.parallel.mesh", "cvc_tpu_torch.parallel.launch",
             "cvc_tpu_torch.tools.import_torch_checkpoint",
             "cvc_tpu_torch.utils.debug", "cvc_tpu_torch.utils.profiling",
-            "cvc_tpu_torch.utils.visualize") + tuple(
+            "cvc_tpu_torch.utils.visualize", "cvc_tpu_torch.bench") + tuple(
             "cvc_tpu_torch.tools." + t for t in TOOLS) + tuple(
             "cvc_tpu_torch.experiments." + t for t in EXPERIMENTS):
     assert new in names, new
